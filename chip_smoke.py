@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phase kernels]
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
@@ -11,13 +11,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
             its kernels (nvcc, one process per csrc/*.cu, all at once) side
             by side; prints the seconds of each.
 3. kernels  each kernel against its plain torch version on the card, integer
-            outputs equal: the ReadQC kernels at their main path's batch
-            (B=65536 reads, L=192, the bucket of 151 bp reads) for 6- and
-            8-bit quals; SeqPurge's three scans at theirs (B=10000 pairs,
+            outputs equal. K1 at six inputs (``K1_INPUTS``): the main path's
+            (B=65536 reads of 151 bp in the L=192 bucket, 6-bit quals binned
+            to Q2/12/23/37), the same with uniform quals, ragged lengths with
+            6- and 8-bit quals, SeqPurge's -qc bucket (B=16384, 10,000 reads)
+            and long reads (B=1024, L=10240); unpack and tails at the first.
+            SeqPurge's three scans at their main path's batch (B=10000 pairs,
             L=151) and at a ragged B=1237, L=250, with adapters with and
-            without N and adapter prefixes of 15 and 20 bases. Time per call:
-            the median over 5 runs of 10 back-to-back calls between two CUDA
-            events, after warm-up.
+            without N and adapter prefixes of 15 and 20 bases. Times per call
+            (``ops/selfcheck.py``): ``ms`` device time (10 calls captured in a
+            CUDA graph, replays between CUDA events, median of 5, L2-warm);
+            ``call_ms`` the same 10 calls made from Python (the wrapper's host
+            work included); ``cold_ms`` (K1) one call after a 128 MB
+            overwrite and read, median of 20; ``plain_ms`` as ``call_ms``.
+            ``--phase kernels`` stops here.
 4. readqc   a seeded paired gzip FASTQ (2 x 2,000,000 reads x 151 bp) through
             the port's ReadQC CLI on the card, qcML then TXT, with every launch
             count reset before and read after; then the first 200,000 reads of
@@ -37,18 +44,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
 The CPU route is where the plain kernel versions run; the CPU tests hold them
 against the JAX package. This script imports only torch, numpy, the stdlib and
 ngsbits_tpu_torch. Before its last line it prints one JSON line with the
-kernels' records (``ms``/``plain_ms`` at each kernel's main shape; ``bound_ms``
-is the larger of bytes over 3.35 TB/s and integer operations over 16.7 T/s).
+kernels' records (the times at each kernel's main shape, and K1's at each
+input under ``inputs``; ``bound_ms`` is the larger of bytes over 3.35 TB/s and
+integer operations over 16.7 T/s, K1's bytes those inside the reads).
 The last line is {"ok": true, "device": {...}}. Data is written under
 build/chip_smoke/ and removed at the end.
 """
 
 from __future__ import annotations
 
+import argparse
 import gzip
 import json
 import os
-import statistics
 import subprocess
 import sys
 import shutil
@@ -137,26 +145,21 @@ def build():
     native.get_lib()
 
 
-def time_ms(fn, runs: int = 5, calls: int = 10) -> float:
-    """Median over ``runs`` of the mean milliseconds per call of ``calls``
-    back-to-back calls between two CUDA events, after warm-up."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
+# K1's inputs: (label, B, L, qual_bits, quality profile, read length or None
+# for ragged lengths 0..L, valid rows or None for all but the last eighth).
+# The first is the main path's: full ReadQC batches of 151 bp reads from a
+# binning instrument.
+K1_INPUTS = [
+    ("B=65536 L=192 151bp binned", 65536, 192, 6, "binned", 151, 65536),
+    ("B=65536 L=192 151bp uniform", 65536, 192, 6, "uniform", 151, 65536),
+    ("B=65536 L=192 ragged uniform", 65536, 192, 6, "uniform", None, None),
+    ("B=65536 L=192 ragged uniform 8-bit", 65536, 192, 8, "uniform", None, None),
+    ("B=16384 L=192 10000x151bp binned", 16384, 192, 6, "binned", 151, 10000),
+    ("B=1024 L=10240 ragged uniform 8-bit", 1024, 10240, 8, "uniform", None, None),
+]
 
 
-def _record(records: dict, case, label: str, main_shape: bool):
+def _check_equal(case, label: str) -> int:
     from ngsbits_tpu_torch.ops import selfcheck
     case.kernel()
     case.plain()
@@ -165,32 +168,58 @@ def _record(records: dict, case, label: str, main_shape: bool):
     if err != 0:
         raise AssertionError(f"{case.name} ({label}) differs from its plain "
                              f"version: max abs err {err}")
-    ms = time_ms(case.kernel)
-    plain_ms = time_ms(case.plain)
+    return err
+
+
+def _record(records: dict, case, label: str, main_shape: bool,
+            cold: bool = False) -> dict:
+    """Checks the case, times it and returns its numbers; at the kernel's
+    main shape they become its record's."""
+    from ngsbits_tpu_torch.ops import selfcheck
+    err = _check_equal(case, label)
     bytes_ms = case.bytes / PEAK_BYTES * 1e3
     ops_ms = case.ops / PEAK_INT_OPS * 1e3
-    print(f"{case.name:16s} {label}: equal; kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms per call; bound {max(bytes_ms, ops_ms):.4f} ms "
-          f"({case.bytes} B, {case.ops} int ops)")
+    got = dict(shape=label, ms=selfcheck.device_ms(case.kernel),
+               call_ms=selfcheck.call_ms(case.kernel),
+               plain_ms=selfcheck.call_ms(case.plain),
+               bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               bytes=case.bytes)
+    if cold:
+        got["cold_ms"] = selfcheck.cold_ms(case.kernel)
+    print(f"{case.name:16s} {label}: equal; device {got['ms']:.4f} ms"
+          + (f", cold {got['cold_ms']:.4f} ms" if cold else "")
+          + f", per wrapper call {got['call_ms']:.4f} ms, plain "
+          f"{got['plain_ms']:.4f} ms; bound {got['bound_ms']:.4f} ms "
+          f"({case.bytes} B, {case.ops} int ops)", flush=True)
     source, replaces = KERNELS[case.name]
     rec = records.setdefault(case.name, {
         "name": case.name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": 0, "max_abs_err": 0})
     rec["max_abs_err"] = max(rec["max_abs_err"], err)
     if main_shape:
-        rec.update(ms=ms, plain_ms=plain_ms,
-                   bound_ms=max(bytes_ms, ops_ms),
-                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                   library_ms=None, shape=label)
+        rec.update({k: v for k, v in got.items() if k != "bytes"}, library_ms=None)
+    return got
 
 
 def kernels(dev: torch.device) -> dict:
+    """Every kernel against its plain version; device, per-call and plain
+    times. K1 at each of ``K1_INPUTS`` (warm and cold); unpack and tails at
+    the first."""
     from ngsbits_tpu_torch.ops import selfcheck
     records: dict = {}
-    phase("kernels: ReadQC at B=65536, L=192")
-    for qual_bits in (6, 8):  # 6 is the main path's; 8 is -long_read
-        for case in selfcheck.cases(65536, 192, qual_bits, dev, seed=qual_bits):
-            _record(records, case, f"qual_bits={qual_bits}", qual_bits == 6)
+    phase("kernels: ReadQC")
+    k1 = []
+    for i, (label, B, L, qual_bits, profile, read_len, n_valid) in enumerate(K1_INPUTS):
+        for case in selfcheck.cases(B, L, qual_bits, dev, seed=i, profile=profile,
+                                    read_len=read_len, n_valid=n_valid):
+            if case.name == "readqc_batch":
+                k1.append(_record(records, case, label, i == 0, cold=True))
+            elif i == 0:
+                _record(records, case, label, True)
+            else:
+                _check_equal(case, label)
+    records["readqc_batch"]["inputs"] = k1
     phase("kernels: SeqPurge at B=10000, L=151 and B=1237, L=250")
     for (B, L) in ((10000, 151), (1237, 250)):
         for name, (a1, a2) in sorted(ADAPTERS.items()):
@@ -354,7 +383,12 @@ def seqpurge(records: dict):
         shutil.rmtree(WORK / "sp_cpu")
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phase", choices=("all", "kernels"), default="all",
+                    help="'kernels' stops after the kernels phase (no "
+                         "ReadQC or SeqPurge run, so no launch counts)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -365,12 +399,13 @@ def main() -> int:
     probe()
     build()
     records = kernels(dev)
-    WORK.mkdir(parents=True, exist_ok=True)
-    try:
-        readqc(records)
-        seqpurge(records)
-    finally:
-        shutil.rmtree(WORK, ignore_errors=True)
+    if args.phase == "all":
+        WORK.mkdir(parents=True, exist_ok=True)
+        try:
+            readqc(records)
+            seqpurge(records)
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

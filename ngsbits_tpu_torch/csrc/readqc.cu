@@ -13,9 +13,9 @@
 //                  (replaces the per-read tail of the XLA `step` in
 //                  ngsbits_tpu/ops/readqc.py)
 //
-// All three are bound by device-memory bytes, not arithmetic: K1 reads two
-// bytes per base and writes almost nothing; unpack reads ~1.1 and writes two
-// bytes per base; tails reads eight bytes per read. The design keeps every
+// All three are bound by device-memory bytes: K1 reads two bytes per base
+// and writes almost nothing; unpack reads ~1.1 and writes two bytes per
+// base; tails reads eight bytes per read. The design keeps every
 // partial sum on chip (registers, shared memory) and touches device memory
 // once per input byte; what leaves a block goes out as 64-bit atomics into the
 // caller's int64 accumulators, so counts never wrap over a long run.
@@ -41,75 +41,359 @@ __device__ __forceinline__ void add64(long long* p, long long v) {
 }
 
 // ---------------------------------------------------------------------------
-// K1. Block = 256 threads over one tile of kK1Rows rows. Each thread owns one
-// column of a 256-wide column chunk and walks the tile's rows, so the loads
-// of a warp are 32 neighbouring bytes of one row, and the per-cycle counts
-// and sums live in registers for the whole tile. A read's quality sum is a
-// warp reduction per row, added into a shared per-row total. The histogram is
-// a shared int[100] flushed once per block. On the TPU the grid ran in order
-// and kept its outputs resident between steps; here blocks run in any order,
-// so each block adds its partial sums with 64-bit atomics.
+// K1. What bounds it on this card: bytes, and close behind them integer
+// operations. It must read the bytes inside the reads (two per base) and
+// does about a dozen int32 operations per base, so at 3.35 TB/s and 16.7 T
+// op/s the two limits are near each other; the design keeps bytes in flight
+// and spends few operations per byte. Measured on the H100 it is the
+// instructions (per 16-byte chunk, and per block at its end) that set its
+// time, at about 3x the bytes bound (PERF.md).
+//
+// The first design (one thread per column walking 128 rows one at a time,
+// a length load and two one-byte loads per step, a shared histogram and
+// shared atomics for every partial sum) kept about 1.5 KB in flight per SM:
+// its time was set by the serial row chain, not by bytes.
+//
+// This design:
+//   - A thread owns a chunk of 16 columns. A block of 256 threads covers up
+//     to 32 chunks (a column pass of 512 columns) times 256 / chunks row
+//     groups, and walks a contiguous range of rows; rows wider than a pass
+//     take further passes. The range's lengths are staged in shared memory
+//     first, so no load waits on another.
+//   - Each thread keeps a private ring of kDepth steps in shared memory and
+//     fills it with 16-byte cp.async copies of its own chunk of the next
+//     rows (chunks past a read's length are not copied): 32 KB in flight per
+//     block without holding registers, and no barrier, since a thread reads
+//     only what it copied.
+//   - Per-column counts stay in registers as packed byte counters (four
+//     columns to a word). A base's code comes from four of its bits (about
+//     three operations per byte for all five codes, checked exactly by
+//     rebuilding the bytes); chunks holding other bytes take a per-byte
+//     equality test against "AAAA", "CCCC", ... instead. Valid positions
+//     and quality sums (16-bit lanes) likewise.
+//   - A read's quality sum is a byte dot product per word, one sub-warp
+//     reduction (__reduce_add_sync over the lanes of its row group) per row
+//     and one shared add per row and warp.
+//   - The histogram is one shared word per quality byte. Measured on the
+//     H100, lanes of a warp that add into one word (binned qualities) cost
+//     no more than lanes on distinct words, and one copy per lane was no
+//     faster (scripts/k1_variants.py).
+//   - At the end of a range (or before a byte counter could wrap) the
+//     counters go through the ring's memory: each thread stores its words,
+//     and one thread per (chunk, word) sums them over the row groups and
+//     adds into the block's column sums, with no atomics. Each column's
+//     int64 add happens once per block, two blocks per SM.
+//   - L % 16 != 0 or inputs not 16-byte aligned: the same kernel loads the
+//     valid bytes of a chunk one at a time (the scalar path).
+// On the TPU the grid ran in order and kept its outputs resident between
+// steps; here blocks run in any order and add their sums with 64-bit atomics.
 // ---------------------------------------------------------------------------
 
 constexpr int kK1Threads = 256;
-constexpr int kK1Rows = 128;
+constexpr int kChunk = 16;                       // columns per thread: one 16-byte copy
+constexpr int kPassChunks = 32;                  // chunks per column pass
+constexpr int kPassCols = kChunk * kPassChunks;  // columns per pass
+constexpr int kTileRows = 1024;                  // rows whose lengths and sums stay in shared memory
+constexpr int kDepth = 4;                        // steps in each thread's copy ring
+constexpr int kHistBins = 256;                   // one bin per quality byte
+constexpr int kSwarRows = 255;                   // rows a byte counter can take
+constexpr int kColSums = 7;                      // A C G T N, valid, quality
+constexpr int kAccWords = 32;                    // words of K1Acc
 
-__global__ void __launch_bounds__(kK1Threads)
-readqc_batch_kernel(const uint8_t* __restrict__ bases,
-                    const uint8_t* __restrict__ quals,
-                    const int* __restrict__ lengths, int B, int L, int ldc,
-                    long long* __restrict__ counts5,
-                    long long* __restrict__ qsum_cycle,
-                    long long* __restrict__ qhist,
-                    int* __restrict__ read_qsum) {
-    __shared__ int s_hist[kQHist];
-    __shared__ int s_row[kK1Rows];
-    const int tid = threadIdx.x;
-    const int lane = tid & 31;
-    const int r0 = blockIdx.x * kK1Rows;
-    const int nrows = min(kK1Rows, B - r0);
-    for (int i = tid; i < kQHist; i += kK1Threads) s_hist[i] = 0;
-    for (int i = tid; i < kK1Rows; i += kK1Threads) s_row[i] = 0;
-    __syncthreads();
+struct K1Acc {
+    unsigned cnt[5][4];  // byte counters per base code (A C G T N), 4 words
+    unsigned nv[4];      // byte counters of valid positions
+    unsigned qlo[4];     // 16-bit quality sums of bytes 0 and 2 of each word
+    unsigned qhi[4];     // ... of bytes 1 and 3
+};
 
-    for (int c0 = 0; c0 < L; c0 += kK1Threads) {
-        if (c0 + (tid & ~31) >= L) continue;  // whole warp past the last column
-        const int c = c0 + tid;
-        const bool in_col = c < L;
-        int na = 0, nc = 0, ng = 0, nt = 0, nn = 0, qs = 0;
-#pragma unroll 4
-        for (int i = 0; i < nrows; ++i) {
-            const int r = r0 + i;
-            const int len = __ldg(lengths + r);
-            int q = 0;
-            if (in_col && c < len) {
-                const size_t off = static_cast<size_t>(r) * L + c;
-                const int b = __ldg(bases + off);
-                q = static_cast<int>(__ldg(quals + off)) - 33;
-                na += b == 'A';
-                nc += b == 'C';
-                ng += b == 'G';
-                nt += b == 'T';
-                nn += b == 'N';
-                qs += q;
-                if (q >= 0 && q < kQHist) atomicAdd(&s_hist[q], 1);
-            }
-            const int w = __reduce_add_sync(kFull, q);
-            if (lane == 0 && w != 0) atomicAdd(&s_row[i], w);
+// shared memory of one block, in bytes
+constexpr int kRingBytes = kDepth * 2 * kK1Threads * 16;
+constexpr int kHistBytes = kHistBins * 4;
+constexpr int kColBytes = kColSums * kPassCols * 4;
+constexpr int kK1Smem = kRingBytes + kHistBytes + kColBytes + 2 * kTileRows * 4;
+static_assert(kRingBytes >= kAccWords * kK1Threads * 4, "the ring holds the flush");
+
+__device__ __forceinline__ unsigned splat_code(int k) {
+    return 0x01010101u * (k == 0 ? 'A' : k == 1 ? 'C' : k == 2 ? 'G' : k == 3 ? 'T' : 'N');
+}
+
+// valid columns (0..16) of the chunk at c0 in a read of length len (0..L)
+__device__ __forceinline__ int chunk_valid(int len, int c0) {
+    return min(max(len - c0, 0), kChunk);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the valid bytes of a chunk, one at a time (the scalar path)
+__device__ __forceinline__ uint4 load_bytes(const uint8_t* __restrict__ p, int n) {
+    unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j)
+        if (j < n) w[j >> 2] |= static_cast<unsigned>(__ldg(p + j)) << (8 * (j & 3));
+    return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Exact per-byte equality of the valid bytes of b with each code, into the
+// byte counters: (low 7 bits ^ code) + 0x7F sets bit 7 unless the byte
+// equals the code (no carry into the next byte); bytes with the top bit set
+// never match. m8: 0xFF in each valid byte.
+__device__ __forceinline__ void count_exact(K1Acc& a, int w, unsigned b, unsigned m8) {
+    const unsigned ok = m8 & ~b & 0x80808080u;
+    const unsigned b7 = b & 0x7F7F7F7Fu;
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+        const unsigned x = (b7 ^ splat_code(k)) + 0x7F7F7F7Fu;
+        a.cnt[k][w] += (~x & ok) >> 7;
+    }
+}
+
+// One row's chunk of n valid columns into the counters and the histogram;
+// returns the chunk's sum of quality bytes.
+//
+// Bases: for a byte y in ACGTN, bits 1-4 name the code (A: bits 1, 2
+// clear; C: 1 set, 2 clear; G: 1, 2 set, 3 clear; T: bit 4; N: bit 3).
+// The flags are checked by rebuilding the word from them: where any valid
+// byte is not rebuilt (not in ACGTN), the chunk takes count_exact instead.
+__device__ __forceinline__ unsigned k1_chunk(K1Acc& a, const uint4& bv,
+                                             const uint4& qv, int n,
+                                             unsigned* s_hist) {
+    const unsigned bw[4] = {bv.x, bv.y, bv.z, bv.w};
+    const unsigned qw[4] = {qv.x, qv.y, qv.z, qv.w};
+    constexpr unsigned k01 = 0x01010101u;
+    unsigned m8[4], flag[5][4];
+    bool acgtn = true;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+        // 0xFF in each valid byte (little-endian: column 4w + j is byte j)
+        m8[w] = __funnelshift_lc(0xFFFFFFFFu, 0u, max(8 * n - 32 * w, 0));
+        const unsigned y = bw[w] & m8[w];
+        const unsigned x1 = y >> 1, x2 = y >> 2, x3 = y >> 3, x4 = y >> 4;
+        flag[0][w] = ~x1 & ~x2 & m8[w] & k01;
+        flag[1][w] = x1 & ~x2 & k01;
+        flag[2][w] = x1 & x2 & ~x3 & k01;
+        flag[3][w] = x4 & k01;
+        flag[4][w] = x3 & k01;
+        acgtn &= flag[0][w] * 'A' + flag[1][w] * 'C' + flag[2][w] * 'G' +
+                 flag[3][w] * 'T' + flag[4][w] * 'N' == y;
+    }
+    unsigned part = 0;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+        if (acgtn) {
+#pragma unroll
+            for (int k = 0; k < 5; ++k) a.cnt[k][w] += flag[k][w];
+        } else {
+            count_exact(a, w, bw[w], m8[w]);
         }
-        if (in_col) {
-            if (na) add64(counts5 + 0 * static_cast<size_t>(ldc) + c, na);
-            if (nc) add64(counts5 + 1 * static_cast<size_t>(ldc) + c, nc);
-            if (ng) add64(counts5 + 2 * static_cast<size_t>(ldc) + c, ng);
-            if (nt) add64(counts5 + 3 * static_cast<size_t>(ldc) + c, nt);
-            if (nn) add64(counts5 + 4 * static_cast<size_t>(ldc) + c, nn);
-            if (qs) add64(qsum_cycle + c, qs);
+        a.nv[w] += m8[w] & k01;
+        const unsigned q = qw[w] & m8[w];
+        part = __dp4a(q, k01, part);
+        a.qlo[w] += q & 0x00FF00FFu;
+        a.qhi[w] += (q >> 8) & 0x00FF00FFu;
+        // masked bytes land in bin 0, which is below Q0 and never read
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const unsigned byte = (q >> (8 * j)) & 0xFFu;
+            atomicAdd(s_hist + byte, 1u);
+        }
+    }
+    return part;
+}
+
+// Every thread's counters into the block's column sums (all threads call
+// it, with the copy ring drained); zeroes the counters.
+__device__ __forceinline__ void k1_flush(K1Acc& a, bool active, unsigned* s_stage,
+                                         unsigned* s_col, int cpp, int rows_per) {
+    const int tid = threadIdx.x;
+    __syncthreads();
+    // words x: A C G T N (x = 4k + w), valid (20 + w), quality (24 + w, 28 + w)
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+#pragma unroll
+        for (int k = 0; k < 5; ++k)
+            s_stage[(4 * k + w) * kK1Threads + tid] = active ? a.cnt[k][w] : 0u;
+        s_stage[(20 + w) * kK1Threads + tid] = active ? a.nv[w] : 0u;
+        s_stage[(24 + w) * kK1Threads + tid] = active ? a.qlo[w] : 0u;
+        s_stage[(28 + w) * kK1Threads + tid] = active ? a.qhi[w] : 0u;
+    }
+    a = K1Acc{};
+    __syncthreads();
+    // one thread per (chunk, word): byte counters sum into 16-bit lanes
+    // (at most 256 row groups of at most 255), quality words into 32 bits
+    for (int item = tid; item < cpp * kAccWords; item += kK1Threads) {
+        const int cl = item % cpp;
+        const int x = item / cpp;
+        unsigned s0 = 0, s1 = 0;
+        for (int rg = 0; rg < rows_per; ++rg) {
+            const unsigned v = s_stage[x * kK1Threads + rg * cpp + cl];
+            if (x < 24) {
+                s0 += v & 0x00FF00FFu;
+                s1 += (v >> 8) & 0x00FF00FFu;
+            } else {
+                s0 += v & 0xFFFFu;
+                s1 += v >> 16;
+            }
+        }
+        const int w = x & 3;
+        const int col = cl * kChunk + 4 * w;
+        if (x < 24) {  // A C G T N, then valid: columns 4w + 0..3
+            unsigned* dst = s_col + (x >> 2) * kPassCols + col;
+            dst[0] += s0 & 0xFFFFu;
+            dst[1] += s1 & 0xFFFFu;
+            dst[2] += s0 >> 16;
+            dst[3] += s1 >> 16;
+        } else {  // quality: bytes 0 and 2 (x < 28), else 1 and 3
+            unsigned* dst = s_col + 6 * kPassCols + col + (x < 28 ? 0 : 1);
+            dst[0] += s0;
+            dst[2] += s1;
         }
     }
     __syncthreads();
-    for (int i = tid; i < nrows; i += kK1Threads) read_qsum[r0 + i] = s_row[i];
-    for (int i = tid; i < kQHist; i += kK1Threads)
-        if (s_hist[i]) add64(qhist + i, s_hist[i]);
+}
+
+// The pass's column sums into the int64 outputs; zeroes them.
+__device__ __forceinline__ void k1_columns_out(unsigned* s_col, int col0, int ncols,
+                                               int ldc, long long* counts5,
+                                               long long* qsum_cycle) {
+    for (int c = threadIdx.x; c < ncols; c += kK1Threads) {
+#pragma unroll
+        for (int k = 0; k < 5; ++k) {
+            const unsigned v = s_col[k * kPassCols + c];
+            if (v) add64(counts5 + k * static_cast<size_t>(ldc) + col0 + c, v);
+        }
+        const long long qs = static_cast<long long>(s_col[6 * kPassCols + c]) -
+                             33LL * s_col[5 * kPassCols + c];
+        if (qs) add64(qsum_cycle + col0 + c, qs);
+#pragma unroll
+        for (int k = 0; k < kColSums; ++k) s_col[k * kPassCols + c] = 0;
+    }
+}
+
+template <bool kVec16>
+__global__ void __launch_bounds__(kK1Threads, 2)
+readqc_batch_kernel(const uint8_t* __restrict__ bases,
+                    const uint8_t* __restrict__ quals,
+                    const int* __restrict__ lengths, int B, int L, int ldc,
+                    int block_rows, long long* __restrict__ counts5,
+                    long long* __restrict__ qsum_cycle,
+                    long long* __restrict__ qhist,
+                    int* __restrict__ read_qsum) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    uint4* s_ring = reinterpret_cast<uint4*>(smem);  // [kDepth][2][kK1Threads]
+    unsigned* s_hist = reinterpret_cast<unsigned*>(smem + kRingBytes);
+    unsigned* s_col = s_hist + kHistBins;
+    unsigned* s_row = s_col + kColSums * kPassCols;
+    int* s_len = reinterpret_cast<int*>(s_row + kTileRows);
+
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int nchunks = (L + kChunk - 1) / kChunk;
+    const int npass = (nchunks + kPassChunks - 1) / kPassChunks;
+    const int cpp = min(nchunks, kPassChunks);  // chunks per row group
+    const int rows_per = kK1Threads / cpp;       // row groups
+    const int cl = tid % cpp;
+    const int rg = tid / cpp;
+    const bool active = rg < rows_per;
+    // the lanes of this warp in this thread's row group reduce a row together
+    const int wbase = tid & ~31;
+    const int g0 = max(rg * cpp, wbase) - wbase;
+    const int g1 = min(rg * cpp + cpp, wbase + 32) - wbase;
+    const unsigned gmask = __funnelshift_lc(0xFFFFFFFFu, 0u, g1 - g0) << g0;
+    const bool leader = lane == g0;
+
+    for (int i = tid; i < kHistBins + kColSums * kPassCols + kTileRows; i += kK1Threads)
+        s_hist[i] = 0;  // s_hist, s_col and s_row are contiguous
+
+    K1Acc acc = {};
+    int acc_rows = 0;
+    const int rb = blockIdx.x * block_rows;
+    const int re = min(B, rb + block_rows);
+    for (int t0 = rb; t0 < re; t0 += kTileRows) {
+        const int nrows = min(kTileRows, re - t0);
+        __syncthreads();
+        for (int i = tid; i < nrows; i += kK1Threads)
+            s_len[i] = min(max(__ldg(lengths + t0 + i), 0), L);
+        __syncthreads();
+        const int nsteps = active && rg < nrows ? (nrows - rg + rows_per - 1) / rows_per : 0;
+        const int per_tile = (nrows + rows_per - 1) / rows_per;  // the same in every thread
+        if (npass == 1 && acc_rows + per_tile > kSwarRows) {
+            k1_flush(acc, active, reinterpret_cast<unsigned*>(s_ring), s_col, cpp, rows_per);
+            acc_rows = 0;
+        }
+        acc_rows += per_tile;
+        for (int p = 0; p < npass; ++p) {
+            const int c0 = (p * kPassChunks + cl) * kChunk;
+            auto prefetch = [&](int s) {
+                if (kVec16 && s < nsteps) {
+                    const int i = rg + s * rows_per;
+                    if (chunk_valid(s_len[i], c0) > 0) {
+                        const size_t off = static_cast<size_t>(t0 + i) * L + c0;
+                        uint4* slot = s_ring + (s % kDepth) * 2 * kK1Threads + tid;
+                        cp_async16(slot, bases + off);
+                        cp_async16(slot + kK1Threads, quals + off);
+                    }
+                }
+                cp_async_commit();
+            };
+#pragma unroll
+            for (int s = 0; s < kDepth - 1; ++s) prefetch(s);
+            for (int s = 0; s < nsteps; ++s) {
+                prefetch(s + kDepth - 1);
+                cp_async_wait<kDepth - 1>();
+                const int i = rg + s * rows_per;
+                const int n = chunk_valid(s_len[i], c0);
+                unsigned part = 0;
+                if (n > 0) {
+                    uint4 b, q;
+                    if (kVec16) {
+                        const uint4* slot = s_ring + (s % kDepth) * 2 * kK1Threads + tid;
+                        b = slot[0];
+                        q = slot[kK1Threads];
+                    } else {
+                        const size_t off = static_cast<size_t>(t0 + i) * L + c0;
+                        b = load_bytes(bases + off, n);
+                        q = load_bytes(quals + off, n);
+                    }
+                    // one body for whole and partial chunks: the lanes of a
+                    // warp hold both, and two bodies would run one after the other
+                    part = k1_chunk(acc, b, q, n, s_hist);
+                }
+                part = __reduce_add_sync(gmask, part);
+                if (leader && part) atomicAdd(&s_row[i], part);
+            }
+            cp_async_wait<0>();
+            if (npass > 1) {
+                k1_flush(acc, active, reinterpret_cast<unsigned*>(s_ring), s_col, cpp, rows_per);
+                k1_columns_out(s_col, p * kPassCols, min(kPassCols, L - p * kPassCols),
+                               ldc, counts5, qsum_cycle);
+            }
+        }
+        __syncthreads();
+        for (int i = tid; i < nrows; i += kK1Threads) {
+            // modulo 2^32, as the int64 sum cast to int32
+            read_qsum[t0 + i] = static_cast<int>(s_row[i] - 33u * static_cast<unsigned>(s_len[i]));
+            s_row[i] = 0;
+        }
+    }
+    if (npass == 1) {
+        k1_flush(acc, active, reinterpret_cast<unsigned*>(s_ring), s_col, cpp, rows_per);
+        k1_columns_out(s_col, 0, L, ldc, counts5, qsum_cycle);
+    }
+    // quality bytes 33..132 are q = 0..99
+    if (tid < kQHist && s_hist[33 + tid]) add64(qhist + tid, s_hist[33 + tid]);
 }
 
 // ---------------------------------------------------------------------------
@@ -248,10 +532,32 @@ extern "C" {
 int ngs_readqc_batch(const void* bases, const void* quals, const void* lengths,
                      int B, int L, int ldc, void* counts5, void* qsum_cycle,
                      void* qhist, void* read_qsum, void* stream) {
-    const int blocks = (B + kK1Rows - 1) / kK1Rows;
-    readqc_batch_kernel<<<blocks, kK1Threads, 0, static_cast<cudaStream_t>(stream)>>>(
+    // two blocks per SM, the rows spread evenly over them
+    const long long blocks = 2LL * ngs::sm_count();
+    int block_rows = static_cast<int>((B + blocks - 1) / blocks);
+    // column passes add their sums per block and pass: at least 32 rows
+    if ((L + kChunk - 1) / kChunk > kPassChunks && block_rows < 32) block_rows = 32;
+    // a block sums at most 2^24 rows in its 32-bit shared counters
+    if (block_rows > (1 << 24)) block_rows = 1 << 24;
+    const int grid = static_cast<int>((B + static_cast<long long>(block_rows) - 1) / block_rows);
+    const bool vec16 = L % kChunk == 0 &&
+                       ((reinterpret_cast<uintptr_t>(bases) |
+                         reinterpret_cast<uintptr_t>(quals)) % 16) == 0;
+    const auto kernel = vec16 ? readqc_batch_kernel<true> : readqc_batch_kernel<false>;
+    // more than 48 KB of shared memory: allowed once per kernel and device
+    static bool allowed[64][2];
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+    if (!allowed[dev][vec16]) {
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kK1Smem);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        allowed[dev][vec16] = true;
+    }
+    kernel<<<grid, kK1Threads, kK1Smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(bases), static_cast<const uint8_t*>(quals),
-        static_cast<const int*>(lengths), B, L, ldc,
+        static_cast<const int*>(lengths), B, L, ldc, block_rows,
         static_cast<long long*>(counts5), static_cast<long long*>(qsum_cycle),
         static_cast<long long*>(qhist), static_cast<int*>(read_qsum));
     return static_cast<int>(cudaGetLastError());

@@ -6,15 +6,20 @@ sums for tails); ``seqpurge_cases`` the inputs SeqPurge's engine gives its
 three scans (padded read pairs of a short-insert library). Both come from a
 numpy seed and return one ``Case`` per kernel: ``kernel()`` runs the wrapper,
 ``plain()`` the plain torch version, each into its own outputs.
+``batch_case`` makes K1's case for any ``[B, L]``, and ``reads`` takes quality
+profiles, fixed read lengths and bytes past the lengths that are not zero.
 ``max_abs_err`` compares the two after both ran once. Each case also counts
 the work the function must do on its inputs: ``bytes`` (each input read once,
-each output written once) and ``ops`` (integer operations: compares and
-additions; for the scans, the compares that these inputs need).
-``chip_smoke.py`` and the ``gpu``-marked tests use them on the card.
+each output written once; for K1 only the bytes inside the reads) and ``ops``
+(integer operations: compares and additions; for the scans, the compares
+that these inputs need). ``device_ms``, ``cold_ms`` and ``call_ms`` time a
+call on the card. ``chip_smoke.py``, ``scripts/k1_variants.py`` and the
+``gpu``-marked tests use them.
 """
 
 from __future__ import annotations
 
+import statistics
 from dataclasses import dataclass
 from typing import Callable
 
@@ -35,30 +40,93 @@ class Case:
     outputs: Callable[[], tuple[list, list]]  # (kernel outputs, plain outputs)
     bytes: int = 0             # least bytes moved: inputs once, outputs once
     ops: int = 0               # integer operations on these inputs
+    inputs: tuple = ()         # K1's (bases, quals, lengths)
 
 
-def reads(B: int, L: int, qual_bits: int, seed: int = 0):
-    """Ragged reads as the bucketed main path has them: lengths 0..L
-    (some 0), ~2% N, quals up to Q41 (Q93 with ``qual_bits=8``), and the
-    last eighth of the rows padding (n_valid = B - B // 8)."""
+PROFILES = ("uniform", "binned", "wide")
+BINNED_Q = np.array([2, 12, 23, 37])  # the four bins of NovaSeq 6000's RTA3
+
+
+def reads(B: int, L: int, qual_bits: int, seed: int = 0,
+          profile: str = "uniform", read_len: int | None = None,
+          n_valid: int | None = None, dirty: bool = False):
+    """Reads as the bucketed main path has them: ~2% N, lengths 0..L (some
+    0) or, with ``read_len``, every read ``min(read_len, L)`` long, and the
+    rows from ``n_valid`` on padding of length 0 (default: the last eighth).
+
+    Quality profiles: ``uniform`` draws each quality from Q0..Q41 (Q0..Q93
+    with ``qual_bits=8``); ``binned`` uses only Q2/Q12/Q23/Q37, in runs along
+    the read, as binning instruments write them; ``wide`` draws each base
+    and quality byte from 0..255 (bases outside ACGTN, qualities below Q0
+    and past Q99; only for K1, not packable).
+    Bytes past a read's length are 0, or random bytes with ``dirty``."""
+    if profile not in PROFILES:
+        raise ValueError(f"profile must be one of {PROFILES}, got {profile!r}")
     rng = np.random.default_rng(seed)
     bases = rng.choice(np.frombuffer(b"ACGTN", dtype=np.uint8), size=(B, L),
                        p=[0.245, 0.245, 0.245, 0.245, 0.02])
-    qmax = 126 if qual_bits == 8 else 74
-    quals = rng.integers(33, qmax + 1, size=(B, L)).astype(np.uint8)
-    lengths = rng.integers(0, L + 1, size=B).astype(np.int32)
-    n_valid = B - B // 8
+    if profile == "uniform":
+        qmax = 126 if qual_bits == 8 else 74
+        quals = rng.integers(33, qmax + 1, size=(B, L)).astype(np.uint8)
+    elif profile == "binned":
+        # a new bin at about one cycle in eight, mostly the top one
+        start = rng.choice(4, size=(B, 1), p=[0.05, 0.1, 0.15, 0.7])
+        change = rng.random((B, L)) < 0.125
+        step = np.where(change, rng.choice(4, size=(B, L), p=[0.05, 0.1, 0.15, 0.7]), 0)
+        idx = np.maximum.accumulate(np.where(change, np.arange(L)[None, :], -1), axis=1)
+        binned = np.where(idx >= 0, step[np.arange(B)[:, None], np.maximum(idx, 0)], start)
+        quals = (BINNED_Q[binned] + 33).astype(np.uint8)
+    else:
+        bases = rng.integers(0, 256, size=(B, L)).astype(np.uint8)
+        bases[rng.random((B, L)) < 0.5] = ord("A")  # still counts
+        quals = rng.integers(0, 256, size=(B, L)).astype(np.uint8)
+    if read_len is None:
+        lengths = rng.integers(0, L + 1, size=B).astype(np.int32)
+    else:
+        lengths = np.full(B, min(read_len, L), np.int32)
+    n_valid = B - B // 8 if n_valid is None else n_valid
     lengths[n_valid:] = 0
     mask = np.arange(L)[None, :] < lengths[:, None]
-    return (np.where(mask, bases, 0).astype(np.uint8),
-            np.where(mask, quals, 0).astype(np.uint8), lengths, n_valid)
+    if dirty:
+        fill_b, fill_q = (rng.integers(0, 256, size=(B, L)).astype(np.uint8)
+                          for _ in range(2))
+    else:
+        fill_b = fill_q = np.uint8(0)
+    return (np.where(mask, bases, fill_b).astype(np.uint8),
+            np.where(mask, quals, fill_q).astype(np.uint8), lengths, n_valid)
+
+
+def _k1_outputs(B: int, L: int, device: torch.device) -> list:
+    return [torch.zeros((5, L), dtype=torch.int64, device=device),
+            torch.zeros(L, dtype=torch.int64, device=device),
+            torch.zeros(QHIST_SIZE, dtype=torch.int64, device=device),
+            torch.zeros(B, dtype=torch.int32, device=device)]
+
+
+def batch_case(bases: torch.Tensor, quals: torch.Tensor,
+               lengths: torch.Tensor) -> Case:
+    """K1 on ``[B, L]`` ASCII reads. Bytes: those inside the reads (two per
+    base), the lengths, ``read_qsum`` and the int64 outputs; operations:
+    five compares and two additions per base inside the reads."""
+    B, L = bases.shape
+    kk, kp = _k1_outputs(B, L, bases.device), _k1_outputs(B, L, bases.device)
+    inside = int(lengths.to(torch.int64).clamp(0, L).sum())
+    return Case("readqc_batch", pk.readqc_batch_into,
+                lambda: pk.readqc_batch_into(bases, quals, lengths, *kk),
+                lambda: pk.readqc_batch_plain(bases, quals, lengths, *kp),
+                lambda: (kk, kp),
+                bytes=2 * inside + 4 * B + 4 * B + 8 * (6 * L + QHIST_SIZE),
+                ops=7 * inside, inputs=(bases, quals, lengths))
 
 
 def cases(B: int, L: int, qual_bits: int, device: torch.device,
-          seed: int = 0) -> list[Case]:
+          seed: int = 0, profile: str = "uniform", read_len: int | None = None,
+          n_valid: int | None = None) -> list[Case]:
+    """unpack, K1 and tails on one batch of ``reads`` (the same keywords)."""
     if L % 8:
         raise ValueError(f"L must be a multiple of 8, got {L}")
-    bases_np, quals_np, lengths_np, n_valid = reads(B, L, qual_bits, seed)
+    bases_np, quals_np, lengths_np, n_valid = reads(
+        B, L, qual_bits, seed, profile=profile, read_len=read_len, n_valid=n_valid)
     packed = [torch.from_numpy(a).to(device)
               for a in pack_batch(bases_np, quals_np, qual_bits)]
     lengths = torch.from_numpy(lengths_np).to(device)
@@ -77,24 +145,11 @@ def cases(B: int, L: int, qual_bits: int, device: torch.device,
     # K1 on what unpack gives it
     ascii_b, ascii_q = u8(), u8()
     pk.readqc_unpack_plain(*packed, qual_bits, ascii_b, ascii_q)
-
-    def k1_out():
-        return [torch.zeros((5, L), dtype=torch.int64, device=device),
-                torch.zeros(L, dtype=torch.int64, device=device),
-                torch.zeros(QHIST_SIZE, dtype=torch.int64, device=device),
-                torch.zeros(B, dtype=torch.int32, device=device)]
-
-    kk, kp = k1_out(), k1_out()
-    batch = Case("readqc_batch", pk.readqc_batch_into,
-                 lambda: pk.readqc_batch_into(ascii_b, ascii_q, lengths, *kk),
-                 lambda: pk.readqc_batch_plain(ascii_b, ascii_q, lengths, *kp),
-                 lambda: (kk, kp),
-                 bytes=2 * B * L + 4 * B + 8 * (6 * L + QHIST_SIZE) + 4 * B,
-                 ops=7 * B * L)
+    batch = batch_case(ascii_b, ascii_q, lengths)
 
     # tails on K1's per-read sums
-    read_qsum = k1_out()[3]
-    pk.readqc_batch_plain(ascii_b, ascii_q, lengths, *k1_out()[:3], read_qsum)
+    *sums, read_qsum = _k1_outputs(B, L, device)
+    pk.readqc_batch_plain(ascii_b, ascii_q, lengths, *sums, read_qsum)
     ck, cp = stream_carry_init(L, device), stream_carry_init(L, device)
     tails = Case("readqc_tails", pk.readqc_tails_into,
                  lambda: pk.readqc_tails_into(read_qsum, lengths, n_valid, 0, ck),
@@ -178,6 +233,83 @@ def seqpurge_cases(B: int, L: int, device: torch.device, a1: bytes, a2: bytes,
                 lambda: (sk, sq),
                 bytes=B * L + 4 * B + 8 * B * L, ops=len(ad) * B * L)
     return [insert, evidence, scan]
+
+
+def device_ms(fn: Callable[[], None], calls: int = 10, runs: int = 5) -> float:
+    """Device milliseconds per call, without the host's work in the wrapper:
+    ``calls`` calls captured once in a CUDA graph, the graph replayed between
+    two CUDA events; the median of ``runs`` replays, after warm-up. Inputs
+    that fit the L2 cache stay there from one call to the next."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def cold_ms(fn: Callable[[], None], runs: int = 20,
+            flush_bytes: int = 128 << 20, clean: bool = True) -> float:
+    """Device milliseconds of one call that finds its inputs outside the L2
+    cache: each call follows an overwrite of a ``flush_bytes`` buffer, with
+    CUDA events around the call alone; the median of ``runs``. The call is
+    queued while the card still works on the overwrite, so the wrapper's
+    host work is not in the time. With ``clean`` the buffer is also read
+    after the overwrite, so the L2 holds clean lines and the call does not
+    pay for writing back the overwrite's dirty ones. Five unrecorded rounds
+    come first: without them the first cold timing in a process came out up
+    to three times the later ones on the H100."""
+    fn()
+    flush = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
+    times = []
+    for i in range(runs + 5):  # the first five warm the loop up
+        torch.cuda.synchronize()
+        flush.fill_(i & 0xFF)
+        if clean:
+            flush.max()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times[5:])
+
+
+def call_ms(fn: Callable[[], None], runs: int = 5, calls: int = 10) -> float:
+    """Milliseconds per wrapper call, host work included: the median over
+    ``runs`` of ``calls`` back-to-back calls between two CUDA events, after
+    warm-up. For a kernel the difference to ``device_ms`` is the wrapper's
+    host overhead; for a plain version (which may synchronise or allocate,
+    and so cannot be captured in a graph) it is the time."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
 
 
 def max_abs_err(case: Case) -> int:

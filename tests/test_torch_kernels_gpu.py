@@ -1,6 +1,8 @@
 """Each CUDA kernel of the port against its plain torch version, on the card:
 the ReadQC kernels at their main path's batch shape (B=65536 reads, L=192
-cycles, the bucket of 151 bp reads), SeqPurge's scans at theirs (B=10000
+cycles, the bucket of 151 bp reads), K1 also at the edge shapes its paths
+split on (16-byte and byte loads, column passes, partial tiles), with each
+quality profile and random bytes past the reads, SeqPurge's scans at theirs (B=10000
 pairs, L=151) and at a ragged shape (B=1237, L=250), with adapters with and
 without N and adapter prefixes of 15 and 20 bases. Integer outputs: the
 tolerance is exact equality. Skips where no CUDA device is available."""
@@ -26,6 +28,56 @@ def test_kernel_matches_plain_version(kernel, qual_bits):
     torch.cuda.synchronize()
     assert case.wrapper.launches == before + 1
     assert selfcheck.max_abs_err(case) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("profile,qual_bits", [("uniform", 6), ("uniform", 8),
+                                               ("binned", 6), ("wide", 8)])
+@pytest.mark.parametrize("B,L,n_valid", [
+    (65536, 192, None), (16384, 192, 10000), (1237, 151, None), (1, 1, 1),
+    (33, 300, None), (1024, 10240, None)])
+def test_readqc_batch_matches_plain_version(B, L, n_valid, profile, qual_bits):
+    """K1 with random bytes past each read's length; ``wide`` puts quality
+    bytes below 33 and at or above 133 (outside the histogram)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    arrays = selfcheck.reads(B, L, qual_bits, seed=B + L, profile=profile,
+                             n_valid=n_valid, dirty=True)[:3]
+    case = selfcheck.batch_case(*(torch.from_numpy(a).cuda() for a in arrays))
+    before = case.wrapper.launches
+    case.kernel()
+    case.plain()
+    torch.cuda.synchronize()
+    assert case.wrapper.launches == before + 1
+    assert selfcheck.max_abs_err(case) == 0
+
+
+@pytest.mark.gpu
+def test_readqc_batch_unaligned_inputs_take_byte_loads():
+    """Inputs that are not 16-byte aligned (here L % 16 == 0, so only the
+    address decides) go through the kernel's byte loads, with the same
+    result; outputs wider than the batch keep their last columns."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ngsbits_tpu_torch.ops import pallas_kernels as pk
+    B, L = 4096, 192
+    arrays = selfcheck.reads(B, L, 6, seed=5, profile="binned", dirty=True)[:3]
+    bases, quals = (torch.empty(B * L + 1, dtype=torch.uint8, device="cuda")[1:]
+                    .view(B, L).copy_(torch.from_numpy(a)) for a in arrays[:2])
+    lengths = torch.from_numpy(arrays[2]).cuda()
+    assert bases.data_ptr() % 16 and quals.data_ptr() % 16
+    outs = []
+    for fn in (pk.readqc_batch_into, pk.readqc_batch_plain):
+        out = [torch.full((5, L + 8), 7, dtype=torch.int64, device="cuda"),
+               torch.full((L + 8,), 7, dtype=torch.int64, device="cuda"),
+               torch.zeros(100, dtype=torch.int64, device="cuda"),
+               torch.empty(B, dtype=torch.int32, device="cuda")]
+        fn(bases, quals, lengths, *out)
+        outs.append(out)
+    torch.cuda.synchronize()
+    for g, w in zip(*outs):
+        assert torch.equal(g, w)
+    assert (outs[0][0][:, L:] == 7).all()
 
 
 @pytest.mark.gpu

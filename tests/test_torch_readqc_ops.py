@@ -18,6 +18,7 @@ from ngsbits_tpu.qc.read_stats import ReadStatistics as JaxReadStatistics
 from ngsbits_tpu_torch.ops import KERNELS
 from ngsbits_tpu_torch.ops import pallas_kernels as tpk
 from ngsbits_tpu_torch.ops import readqc as tops
+from ngsbits_tpu_torch.ops import selfcheck
 
 CPU = torch.device("cpu")
 
@@ -63,6 +64,39 @@ def test_readqc_batch_out_of_range_quals_and_empty_reads(ref):
     assert (quals < 33).any() and (quals >= 133).any()
     for w, g, name in zip(want, got, ["counts5", "qsum_cycle", "qhist", "read_qsum"]):
         np.testing.assert_array_equal(np.asarray(w), g, err_msg=name)
+
+
+@pytest.mark.parametrize("ref", ["pallas", "xla"])
+@pytest.mark.parametrize("B,L,profile,qual_bits", [
+    (96, 192, "binned", 6),    # binned qualities, as K1's main-path input
+    (40, 1, "uniform", 8),     # one cycle
+    (24, 300, "wide", 8),      # wider than one 256-column chunk; quals 0..255
+    (1, 151, "binned", 6),     # one read
+    (37, 151, "uniform", 6),   # B not a multiple of 16, L of 16 k + 7
+])
+def test_readqc_batch_edges_match_jax(B, L, profile, qual_bits, ref):
+    """K1's plain version on the edge shapes and quality profiles that the
+    kernel's paths split on, with random bytes past each read's length."""
+    bases, quals, lengths, _ = selfcheck.reads(B, L, qual_bits, seed=B * L,
+                                               profile=profile, n_valid=B,
+                                               dirty=True)
+    past = np.arange(L)[None, :] >= lengths[:, None]
+    if past.sum() > 10:
+        assert (bases[past] != 0).any() and (quals[past] != 0).any()
+    want = _JAX_BATCH[ref](bases, quals, lengths)
+    got = _port_batch(bases, quals, lengths)
+    for w, g, name in zip(want, got, ["counts5", "qsum_cycle", "qhist", "read_qsum"]):
+        np.testing.assert_array_equal(np.asarray(w), g, err_msg=name)
+
+
+def test_binned_profile_holds_only_four_qualities():
+    bases, quals, lengths, n_valid = selfcheck.reads(64, 192, 6, seed=3,
+                                                     profile="binned", read_len=151)
+    assert n_valid == 56 and (lengths[:56] == 151).all() and not lengths[56:].any()
+    q = quals[:56, :151].astype(int) - 33
+    assert set(np.unique(q)) <= {2, 12, 23, 37}
+    # runs along the read: neighbouring cycles mostly share a bin
+    assert (q[:, 1:] == q[:, :-1]).mean() > 0.8
 
 
 # ---- stream step: unpack + K1 + tails against the JAX stream_step ----------
