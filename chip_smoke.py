@@ -18,12 +18,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
             and long reads (B=1024, L=10240); unpack and tails at the first.
             SeqPurge's three scans at their main path's batch (B=10000 pairs,
             L=151) and at a ragged B=1237, L=250, with adapters with and
-            without N and adapter prefixes of 15 and 20 bases. Times per call
-            (``ops/selfcheck.py``): ``ms`` device time (10 calls captured in a
-            CUDA graph, replays between CUDA events, median of 5, L2-warm);
-            ``call_ms`` the same 10 calls made from Python (the wrapper's host
-            work included); ``cold_ms`` (K1) one call after a 128 MB
-            overwrite and read, median of 20; ``plain_ms`` as ``call_ms``.
+            without N and adapter prefixes of 15 and 20 bases (off the main
+            batch: random bytes past the reads and all-N pairs). Times per
+            call (``ops/selfcheck.py``): ``ms`` device time (10 calls captured
+            in a CUDA graph, replays between CUDA events, median of 5,
+            L2-warm); ``call_ms`` the same 10 calls made from Python (the
+            wrapper's host work included); ``cold_ms`` (K1 and the three
+            scans, at their main inputs) one call after a 128 MB overwrite
+            and read, median of 20, and the share of the bound against it;
+            ``plain_ms`` as ``call_ms``.
             ``--phase kernels`` stops here.
 4. readqc   a seeded paired gzip FASTQ (2 x 2,000,000 reads x 151 bp) through
             the port's ReadQC CLI on the card, qcML then TXT, with every launch
@@ -188,7 +191,8 @@ def _record(records: dict, case, label: str, main_shape: bool,
     if cold:
         got["cold_ms"] = selfcheck.cold_ms(case.kernel)
     print(f"{case.name:16s} {label}: equal; device {got['ms']:.4f} ms"
-          + (f", cold {got['cold_ms']:.4f} ms" if cold else "")
+          + (f", cold {got['cold_ms']:.4f} ms ({got['bound_ms'] / got['cold_ms']:.1%} "
+             f"of the bound)" if cold else "")
           + f", per wrapper call {got['call_ms']:.4f} ms, plain "
           f"{got['plain_ms']:.4f} ms; bound {got['bound_ms']:.4f} ms "
           f"({case.bytes} B, {case.ops} int ops)", flush=True)
@@ -220,14 +224,16 @@ def kernels(dev: torch.device) -> dict:
             else:
                 _check_equal(case, label)
     records["readqc_batch"]["inputs"] = k1
-    phase("kernels: SeqPurge at B=10000, L=151 and B=1237, L=250")
+    phase("kernels: SeqPurge at B=10000, L=151 and B=1237, L=250 (random bytes "
+          "past the reads, all-N pairs)")
     for (B, L) in ((10000, 151), (1237, 250)):
         for name, (a1, a2) in sorted(ADAPTERS.items()):
             for a_size in (20, 15):
                 main = (B, L, name, a_size) == (10000, 151, "default", 20)
-                for case in selfcheck.seqpurge_cases(B, L, dev, a1, a2,
-                                                     a_size=a_size, seed=B + a_size):
-                    _record(records, case, f"B={B} L={L} {name} a_size={a_size}", main)
+                for case in selfcheck.seqpurge_cases(B, L, dev, a1, a2, a_size=a_size,
+                                                     seed=B + a_size, dirty=not main):
+                    _record(records, case, f"B={B} L={L} {name} a_size={a_size}", main,
+                            cold=main)
     return records
 
 

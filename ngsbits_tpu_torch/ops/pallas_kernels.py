@@ -264,7 +264,7 @@ readqc_tails_into.launches = 0
 # --------------------------------------------------------------------------
 
 N_CODE = ord("N")
-MAX_SCAN_WIDTH = 24576   # K2 stages 2 * L bytes of shared memory per pair
+MAX_SCAN_WIDTH = 24576   # the scans stage rows of L bytes in shared memory (K2: two)
 
 
 def insert_scan_plain(seq1, seq2rc, min_len, matches, mismatches):

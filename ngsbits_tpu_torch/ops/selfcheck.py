@@ -167,12 +167,14 @@ for _a, _c in zip(b"ACGTN", b"TGCAN"):
     _COMPLEMENT[_a] = _c
 
 
-def pairs(B: int, L: int, seed: int = 0):
+def pairs(B: int, L: int, seed: int = 0, dirty: bool = False):
     """Read pairs as SeqPurge's engine pads them: lengths mostly L with a
     tenth of each mate ragged (read 1 any length, read 2 below 10), ~1% N,
     and two pairs in three a short insert (read 2 the reverse complement of
-    read 1's first n bases, then other bases). Returns read1, read2, seq2rc
-    ([B, L] uint8) and len1, len2, min_len ([B] int32)."""
+    read 1's first n bases, then other bases). With ``dirty`` the bytes past
+    each read's length are random and every 16th pair is all N. Returns
+    read1, read2, seq2rc ([B, L] uint8) and len1, len2, min_len ([B]
+    int32)."""
     rng = np.random.default_rng(seed)
     len1 = np.full(B, L, np.int32)
     len2 = np.full(B, L, np.int32)
@@ -188,21 +190,26 @@ def pairs(B: int, L: int, seed: int = 0):
     short = (rng.random(B) < 2 / 3)[:, None] & (pos < insert[:, None])
     mirrored = read1[rows, np.maximum(insert[:, None] - 1 - pos, 0)]
     read2 = np.where(short, _COMPLEMENT[mirrored], read2)
-    read1 = np.where(pos < len1[:, None], read1, 0).astype(np.uint8)
-    read2 = np.where(pos < len2[:, None], read2, 0).astype(np.uint8)
+    if dirty:
+        read1[7::16] = read2[7::16] = ord("N")
+    fill = [rng.integers(0, 256, size=(B, L)).astype(np.uint8) if dirty else 0
+            for _ in range(3)]
+    read1 = np.where(pos < len1[:, None], read1, fill[0]).astype(np.uint8)
+    read2 = np.where(pos < len2[:, None], read2, fill[1]).astype(np.uint8)
     idx2 = len2[:, None] - 1 - pos
-    seq2rc = np.where(idx2 >= 0, _COMPLEMENT[read2[rows, np.maximum(idx2, 0)]], 0)
+    seq2rc = np.where(idx2 >= 0, _COMPLEMENT[read2[rows, np.maximum(idx2, 0)]], fill[2])
     return (read1, read2, seq2rc.astype(np.uint8), len1, len2,
             np.minimum(len1, len2))
 
 
 def seqpurge_cases(B: int, L: int, device: torch.device, a1: bytes, a2: bytes,
-                   a_size: int = 20, overlap: int = 10,
-                   seed: int = 0) -> list[Case]:
+                   a_size: int = 20, overlap: int = 10, seed: int = 0,
+                   dirty: bool = False) -> list[Case]:
     """K2, adapter_evidence (windows ``a1[:overlap]`` and ``a2[:overlap]``)
-    and adapter_scan (``a1[:a_size]`` on read 1) at ``[B, L]``."""
+    and adapter_scan (``a1[:a_size]`` on read 1) at ``[B, L]``, on
+    ``pairs`` (the same ``dirty``)."""
     read1, read2, seq2rc, len1, len2, min_len = (
-        torch.from_numpy(a).to(device) for a in pairs(B, L, seed))
+        torch.from_numpy(a).to(device) for a in pairs(B, L, seed, dirty))
     w1, w2, ad = a1[:overlap], a2[:overlap], a1[:a_size]
 
     def out(n):

@@ -14,15 +14,16 @@ This module holds the wrappers of the two adapter kernels of
 ``ops/pallas_kernels.py`` (CPU tensors take the plain version, CUDA tensors
 launch the kernel or raise), and the three scans as functions that allocate
 their outputs. The adapters are passed as bytes: they travel to the kernel by
-value.
+value. The kernels stage each tile of rows in shared memory, so rows are at
+most ``MAX_SCAN_WIDTH`` bases wide, as for K2.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .pallas_kernels import (N_CODE, _check, _launched, _lib, _ptr, _route,
-                             _stream, insert_scan_into)
+from .pallas_kernels import (MAX_SCAN_WIDTH, N_CODE, _check, _launched, _lib,
+                             _ptr, _route, _stream, insert_scan_into)
 
 MAX_ADAPTER = 64   # the kernels carry at most this many adapter bases
 
@@ -109,6 +110,8 @@ def adapter_evidence_into(read1: torch.Tensor, read2: torch.Tensor,
     if len(a1) != len(a2):
         raise ValueError(f"adapter windows differ: {len(a1)} and {len(a2)}")
     B, L = read1.shape
+    if L > MAX_SCAN_WIDTH:
+        raise ValueError(f"adapter_evidence: L={L} exceeds {MAX_SCAN_WIDTH}")
     _check("read1", read1, torch.uint8, (B, L))
     _check("read2", read2, torch.uint8, (B, L))
     _check("len1", len1, torch.int32, (B,))
@@ -162,6 +165,8 @@ def adapter_scan_into(read: torch.Tensor, length: torch.Tensor,
     if _route(read, length, matches, mismatches) == "cpu":
         return adapter_scan_plain(read, length, adapter, matches, mismatches)
     B, L = read.shape
+    if L > MAX_SCAN_WIDTH:
+        raise ValueError(f"adapter_scan: L={L} exceeds {MAX_SCAN_WIDTH}")
     _check("read", read, torch.uint8, (B, L))
     _check("length", length, torch.int32, (B,))
     _check("matches", matches, torch.int32, (B, L))

@@ -4,7 +4,9 @@ cycles, the bucket of 151 bp reads), K1 also at the edge shapes its paths
 split on (16-byte and byte loads, column passes, partial tiles), with each
 quality profile and random bytes past the reads, SeqPurge's scans at theirs (B=10000
 pairs, L=151) and at a ragged shape (B=1237, L=250), with adapters with and
-without N and adapter prefixes of 15 and 20 bases. Integer outputs: the
+without N and adapter prefixes of 15 and 20 bases, and the adapter scans at
+the edges of their design (L from 1 to 1000, windows of 1 to 64 bases, random
+bytes past the reads, all-N pairs). Integer outputs: the
 tolerance is exact equality. Skips where no CUDA device is available."""
 
 import pytest
@@ -146,6 +148,56 @@ def test_seqpurge_kernels_match_plain_versions(B, L, adapters, a_size):
         torch.cuda.synchronize()
         assert case.wrapper.launches == before + 1, case.name
         assert selfcheck.max_abs_err(case) == 0, case.name
+
+
+# adapters of 64 bases, and the same with N (read 2's first base among them)
+LONG = {False: ((A1 + A2)[:64], (A2 + A1)[:64])}
+LONG[True] = tuple(bytes(ord("N") if i % 7 == 3 or (k == 1 and i == 0) else c
+                         for i, c in enumerate(a)) for k, a in enumerate(LONG[False]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_n", [False, True])
+@pytest.mark.parametrize("size", [1, 10, 20, 33, 64])
+@pytest.mark.parametrize("B", [1, 33, 10000])
+@pytest.mark.parametrize("L", [1, 7, 151, 1000])
+def test_adapter_scans_match_plain_versions_at_the_edges(L, B, size, with_n):
+    """adapter_evidence with a window of ``size`` bases and adapter_scan with
+    an adapter prefix of ``size`` bases, on pairs with random bytes past the
+    lengths, zero lengths, read 2 shorter than the window and all-N pairs:
+    the edges of the staged rows, the template and run-time word counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    a1, a2 = LONG[with_n]
+    cases = [c for c in selfcheck.seqpurge_cases(B, L, torch.device("cuda"), a1, a2,
+                                                 a_size=size, overlap=size,
+                                                 seed=L + B + size, dirty=True)
+             if c.name != "insert_scan"]
+    for case in cases:
+        before = case.wrapper.launches
+        case.kernel()
+        case.plain()
+        torch.cuda.synchronize()
+        assert case.wrapper.launches == before + 1, case.name
+        assert selfcheck.max_abs_err(case) == 0, case.name
+
+
+@pytest.mark.gpu
+def test_adapter_scans_refuse_rows_wider_than_shared_memory_takes():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ngsbits_tpu_torch.ops import pallas_kernels as pk
+    from ngsbits_tpu_torch.ops import seqpurge as sp
+    B, L = 2, pk.MAX_SCAN_WIDTH + 1
+    read = torch.zeros((B, L), dtype=torch.uint8, device="cuda")
+    n = torch.zeros(B, dtype=torch.int32, device="cuda")
+    out = [torch.empty((B, L), dtype=torch.int32, device="cuda") for _ in range(4)]
+    before = [k.launches for k in (sp.adapter_evidence_into, sp.adapter_scan_into)]
+    with pytest.raises(ValueError, match="exceeds"):
+        sp.adapter_evidence_into(read, read, n, n, A1[:10], A2[:10], *out)
+    with pytest.raises(ValueError, match="exceeds"):
+        sp.adapter_scan_into(read, n, A1[:20], *out[:2])
+    assert [k.launches for k in (sp.adapter_evidence_into, sp.adapter_scan_into)] == before
 
 
 @pytest.mark.gpu

@@ -14,7 +14,7 @@ jax = pytest.importorskip("jax")
 
 from ngsbits_tpu.ops import pallas_kernels as jpk
 from ngsbits_tpu.ops import seqpurge as jsp
-from ngsbits_tpu_torch.ops import KERNELS
+from ngsbits_tpu_torch.ops import KERNELS, selfcheck
 from ngsbits_tpu_torch.ops import seqpurge as tsp
 
 ACGTN = np.frombuffer(b"ACGTN", dtype=np.uint8)
@@ -131,6 +131,50 @@ def test_adapter_scan_matches_xla_and_host(adapters, a_size):
     names = ["matches", "mismatches"]
     _assert_equal(got, jsp.adapter_scan(read, length, adapter, a_size), names)
     _assert_equal(got, jsp.adapter_scan_host(read, length, adapter, a_size), names)
+
+
+def _edge_pairs(L, seed):
+    """The card's edge inputs (``selfcheck.pairs`` with ``dirty``: random
+    bytes past the lengths, all-N pairs), with zero lengths and read 2
+    shorter than a window of 10 in the first rows."""
+    read1, read2, _, len1, len2, _ = selfcheck.pairs(97, L, seed, dirty=True)
+    len1[:3] = 0
+    len2[3:6] = np.minimum([0, 4, 9], L)
+    return read1, read2, len1, len2
+
+
+# (L, window or adapter prefix): windows of 1 and 64 bases, L below the window
+_EDGES = [(90, 1), (90, 64), (40, 64), (7, 10), (1, 20)]
+
+
+@pytest.mark.parametrize("L,size", _EDGES)
+def test_adapter_evidence_at_the_edges(L, size):
+    """Zero lengths, read 2 shorter than the window, random bytes past the
+    lengths, adapters of 64 bases with N."""
+    read1, read2, len1, len2 = _edge_pairs(L, L * size)
+    a1 = bytes(ord("N") if i % 9 == 4 else c for i, c in enumerate((A1 + A2)[:size]))
+    a2 = (A2 + A1)[:size]
+    w1, w2 = (np.frombuffer(a, dtype=np.uint8) for a in (a1, a2))
+    got = tsp.adapter_evidence(*_t(read1, read2, len1, len2), a1, a2)
+    names = ["m1", "mm1", "m2", "mm2"]
+    _assert_equal(got, jsp.adapter_evidence(read1, read2, len1, len2, w1, w2, size), names)
+    _assert_equal(got, jsp.adapter_evidence_host(read1, read2, len1, len2, w1, w2, size),
+                  names)
+
+
+@pytest.mark.parametrize("L,size", _EDGES)
+def test_adapter_scan_at_the_edges(L, size):
+    """As above for the adapter-prefix scan. The JAX package's host scan
+    takes only prefixes of at most L + 1 bases (past that its shifted slices
+    no longer line up), so it is held to them there; the XLA scan always."""
+    read, _, length, _ = _edge_pairs(L, L + size)
+    adapter = bytes(ord("N") if i % 9 == 4 else c for i, c in enumerate((A1 + A2)[:size]))
+    ad = np.frombuffer(adapter, dtype=np.uint8)
+    got = tsp.adapter_scan(*_t(read, length), adapter)
+    names = ["matches", "mismatches"]
+    _assert_equal(got, jsp.adapter_scan(read, length, ad, size), names)
+    if size <= L + 1:
+        _assert_equal(got, jsp.adapter_scan_host(read, length, ad, size), names)
 
 
 def test_scans_of_an_empty_batch():
