@@ -19,12 +19,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
             SeqPurge's three scans at their main path's batch (B=10000 pairs,
             L=151) and at a ragged B=1237, L=250, with adapters with and
             without N and adapter prefixes of 15 and 20 bases (off the main
-            batch: random bytes past the reads and all-N pairs). Times per
+            batch: random bytes past the reads and all-N pairs); its
+            decisions (``seqpurge_decide``) on the scans of a library with
+            adapters at the main batch, with and without -ec, and at B=1237,
+            L=250 (per-pair results, accumulators and corrected reads
+            equal). Times per
             call (``ops/selfcheck.py``): ``ms`` device time (10 calls captured
             in a CUDA graph, replays between CUDA events, median of 5,
             L2-warm); ``call_ms`` the same 10 calls made from Python (the
-            wrapper's host work included); ``cold_ms`` (K1 and the three
-            scans, at their main inputs) one call after a 128 MB overwrite
+            wrapper's host work included); ``cold_ms`` (K1, the three scans
+            and the decisions, at their main inputs) one call after a 128 MB overwrite
             and read, median of 20, and the share of the bound against it;
             ``plain_ms`` as ``call_ms``.
             ``--phase kernels`` stops here.
@@ -36,10 +40,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
             be byte-identical once ``creation `` lines are dropped.
 5. seqpurge seeded read pairs of a short-insert library (2 x 2,000,000 x 151
             bp) through the port's SeqPurge CLI on the card with -qc and
-            -summary, counts reset before and read after: all six kernels
-            launched, and neither jax nor the JAX package loaded. Prints
-            pairs/s and the seconds of the scans (device) and the host
-            decisions. Then the first 100,000 pairs on the card and on the
+            -summary, counts reset before and read after: all seven kernels
+            launched, the decisions once per batch of 10,000 pairs (200
+            times), and neither jax nor the JAX package loaded. Prints
+            pairs/s and the seconds by stage (scans and decisions: device
+            time). Then the first 100,000 pairs on the card and on the
             CPU route, with the default flags and once with -ec -out3:
             decompressed FASTQs and the summary identical, qcML identical once
             ``creation `` lines are dropped.
@@ -49,7 +54,8 @@ against the JAX package. This script imports only torch, numpy, the stdlib and
 ngsbits_tpu_torch. Before its last line it prints one JSON line with the
 kernels' records (the times at each kernel's main shape, and K1's at each
 input under ``inputs``; ``bound_ms`` is the larger of bytes over 3.35 TB/s and
-integer operations over 16.7 T/s, K1's bytes those inside the reads).
+integer operations over 16.7 T/s, K1's bytes those inside the reads, the
+decisions' the counts and bases that their inputs need them to read).
 The last line is {"ok": true, "device": {...}}. Data is written under
 build/chip_smoke/ and removed at the end.
 """
@@ -87,7 +93,11 @@ KERNELS = {  # name: (source, the TPU/XLA function it replaces)
     "insert_scan": ("ngsbits_tpu_torch/csrc/seqpurge.cu", "ngsbits_tpu/ops/pallas_kernels.py:153"),
     "adapter_evidence": ("ngsbits_tpu_torch/csrc/seqpurge.cu", "ngsbits_tpu/ops/seqpurge.py:123"),
     "adapter_scan": ("ngsbits_tpu_torch/csrc/seqpurge.cu", "ngsbits_tpu/ops/seqpurge.py:147"),
+    # not a TPU kernel: the JAX package's host decisions (and native/seqpurge.cpp:116)
+    "seqpurge_decide": ("ngsbits_tpu_torch/csrc/seqpurge_decide.cu",
+                        "ngsbits_tpu/qc/seqpurge.py:267"),
 }
+SP_BATCH = 10000  # SeqPurge's -block_size: one decisions launch per batch
 
 
 def phase(name: str):
@@ -234,6 +244,20 @@ def kernels(dev: torch.device) -> dict:
                                                      seed=B + a_size, dirty=not main):
                     _record(records, case, f"B={B} L={L} {name} a_size={a_size}", main,
                             cold=main)
+    phase("kernels: SeqPurge decisions at B=10000, L=151 (with and without -ec) and "
+          "B=1237, L=250 (random bytes past the reads, all-N pairs)")
+    for B, L, name, ec in ((SP_BATCH, READ_LEN, "default", False),
+                           (SP_BATCH, READ_LEN, "default", True),
+                           (1237, 250, "default", False), (1237, 250, "with_n", True)):
+        main = (B, L, ec) == (SP_BATCH, READ_LEN, False)
+        case = selfcheck.decide_case(B, L, dev, *ADAPTERS[name], ec=ec, seed=B + L,
+                                     dirty=L != READ_LEN)
+        label = f"B={B} L={L} {name}{' -ec' if ec else ''}"
+        if main:
+            _record(records, case, label, True, cold=True)
+        else:
+            _check_equal(case, label)
+            print(f"{case.name:16s} {label}: equal", flush=True)
     return records
 
 
@@ -363,7 +387,10 @@ def seqpurge(records: dict):
     launches = _launches()
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel was not launched by SeqPurge -qc: {launches}")
-    for name in ("insert_scan", "adapter_evidence", "adapter_scan"):
+    if launches["seqpurge_decide"] != N_READS // SP_BATCH:
+        raise AssertionError(f"seqpurge_decide launched {launches['seqpurge_decide']} "
+                             f"times, not once per batch ({N_READS // SP_BATCH})")
+    for name in ("insert_scan", "adapter_evidence", "adapter_scan", "seqpurge_decide"):
         records[name]["launches"] = launches[name]
     if _jax_loaded():
         raise AssertionError(f"the port loaded {_jax_loaded()}")
@@ -371,11 +398,14 @@ def seqpurge(records: dict):
     if f"Reads (forward + reverse): {2 * N_READS}" not in summary:
         raise AssertionError("the summary lacks the expected read count")
     print(summary.split("\n\nForward adapter")[0])
-    split = ", ".join(f"{k} {v:.3f}" for k, v in tool.engine.seconds.items())
+    stages = tool.engine.seconds
+    split = ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
     print(f"SeqPurge on {torch.cuda.get_device_name(0)}: {seconds:.3f} s, "
           f"{N_READS / seconds:.0f} pairs/s; seconds by stage: {split} "
-          f"(scans: device time of the three scans; the rest host time on the "
-          f"consumer thread); launches {launches}")
+          f"(scans: device time of the three scans; decisions: device time of "
+          f"seqpurge_decide plus the host's fold of its accumulators; the rest "
+          f"host time on the consumer thread); decisions + fetch "
+          f"{stages['decisions'] + stages['fetch']:.3f} s; launches {launches}")
 
     p1, p2 = WORK / "sp1.prefix.fastq.gz", WORK / "sp2.prefix.fastq.gz"
     _prefix(f1, p1, SP_PREFIX)

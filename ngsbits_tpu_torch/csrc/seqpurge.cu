@@ -1,6 +1,6 @@
 // SeqPurge device kernels for Hopper (sm_90a): the three count scans of one
 // batch of read pairs (ngsbits_tpu_torch/ops/seqpurge.py). The decisions on
-// these counts stay on the host in float64.
+// these counts are made on the card by seqpurge_decide.cu.
 //
 //   insert_scan       K2: for each pair and offset o, matches and mismatches
 //                     of seq1[j-o] against seq2rc[j] over o <= j < min_len

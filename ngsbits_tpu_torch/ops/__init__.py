@@ -6,7 +6,9 @@ in its ``launches`` attribute.
 
 from .pallas_kernels import (insert_scan_into, readqc_batch_into,
                              readqc_tails_into, readqc_unpack_into)
-from .seqpurge import adapter_evidence_into, adapter_scan_into
+from .seqpurge import (adapter_evidence_into, adapter_scan_into,
+                       seqpurge_decide_into)
 
 KERNELS = (readqc_unpack_into, readqc_batch_into, readqc_tails_into,
-           insert_scan_into, adapter_evidence_into, adapter_scan_into)
+           insert_scan_into, adapter_evidence_into, adapter_scan_into,
+           seqpurge_decide_into)

@@ -105,7 +105,7 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             so, _ = build()
             lib = ctypes.CDLL(str(so))
-            p, i = ctypes.c_void_p, ctypes.c_int
+            p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
             lib.ngs_readqc_batch.argtypes = [p, p, p, i, i, i, p, p, p, p, p]
             lib.ngs_readqc_unpack.argtypes = [p, p, p, i, i, i, p, p, p]
             lib.ngs_readqc_tails.argtypes = [p, p, i, i, i, i,
@@ -114,9 +114,12 @@ def library() -> ctypes.CDLL:
             lib.ngs_adapter_evidence.argtypes = [p, p, p, p, i, i, p, i, p, i,
                                                  p, p, p, p, p]
             lib.ngs_adapter_scan.argtypes = [p, p, i, i, p, i, p, p, p]
+            lib.ngs_seqpurge_decide.argtypes = [p, p, p, p, p, i, i, i, d, d,
+                                                i, i, i, i, i, p, p, i, p]
             for fn in (lib.ngs_readqc_batch, lib.ngs_readqc_unpack,
                        lib.ngs_readqc_tails, lib.ngs_insert_scan,
-                       lib.ngs_adapter_evidence, lib.ngs_adapter_scan):
+                       lib.ngs_adapter_evidence, lib.ngs_adapter_scan,
+                       lib.ngs_seqpurge_decide):
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib

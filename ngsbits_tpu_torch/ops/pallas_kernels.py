@@ -10,8 +10,9 @@ its kernel launches in its ``launches`` attribute.
 
 The three ReadQC kernels add into caller-given int64 accumulators, so a
 stream of batches updates one set of tensors in place. K2 writes its outputs
-in full. The adapter scans of SeqPurge live in ``ops/seqpurge.py`` and share
-the checks here; ``ngsbits_tpu_torch.ops.KERNELS`` lists all six wrappers.
+in full. The adapter scans and the decisions of SeqPurge live in
+``ops/seqpurge.py`` and share the checks here; ``ngsbits_tpu_torch.ops.KERNELS``
+lists all seven wrappers.
 """
 
 from __future__ import annotations

@@ -3,9 +3,11 @@
 ``cases`` builds, for one batch shape, the inputs the ReadQC stream step gives
 each of its kernels (packed reads for unpack, ASCII reads for K1, per-read
 sums for tails); ``seqpurge_cases`` the inputs SeqPurge's engine gives its
-three scans (padded read pairs of a short-insert library). Both come from a
-numpy seed and return one ``Case`` per kernel: ``kernel()`` runs the wrapper,
-``plain()`` the plain torch version, each into its own outputs.
+three scans (padded read pairs of a short-insert library), and
+``decide_case`` those its decisions get (the scans' counts of such pairs,
+with qualities). All come from a numpy seed and return one ``Case`` per
+kernel: ``kernel()`` runs the wrapper, ``plain()`` the plain torch version,
+each into its own outputs.
 ``batch_case`` makes K1's case for any ``[B, L]``, and ``reads`` takes quality
 profiles, fixed read lengths and bytes past the lengths that are not zero.
 ``max_abs_err`` compares the two after both ran once. Each case also counts
@@ -240,6 +242,193 @@ def seqpurge_cases(B: int, L: int, device: torch.device, a1: bytes, a2: bytes,
                 lambda: (sk, sq),
                 bytes=B * L + 4 * B + 8 * B * L, ops=len(ad) * B * L)
     return [insert, evidence, scan]
+
+
+def adapter_pairs(B: int, L: int, a1: bytes, a2: bytes, seed: int = 0,
+                  dirty: bool = False):
+    """Read pairs of a short-insert library as the engine pads them, with
+    what the decisions look for: inserts of 0..2L bases, so about half the
+    pairs read through their insert into the adapter (``a1`` after read 1's
+    insert, ``a2`` after read 2's) and on into random bases. ~1% N, 2% of
+    read 2's bases replaced (errors for -ec to correct), a run of 8 Ns in
+    every tenth read 1, lengths mostly L with a tenth of each mate of any
+    length. With ``dirty`` the bytes past each read are random and every
+    16th pair is all N. Returns what ``pairs`` returns."""
+    rng = np.random.default_rng(seed)
+    len1 = np.full(B, L, np.int32)
+    len2 = np.full(B, L, np.int32)
+    for ln in (len1, len2):
+        ragged = rng.random(B) < 0.1
+        ln[ragged] = rng.integers(0, L + 1, size=int(ragged.sum()))
+    insert = rng.integers(0, 2 * L + 1, size=B)[:, None]
+    frag = _ACGTN[rng.choice(5, size=(B, 2 * L), p=[0.2475] * 4 + [0.01])]
+    pos = np.arange(L)[None, :]
+    rows = np.arange(B)[:, None]
+    past = pos - insert   # position in the read's tail
+
+    def tail(adapter: bytes):
+        a = np.frombuffer(adapter, dtype=np.uint8)
+        rand = _ACGTN[rng.integers(0, 4, size=(B, L))]
+        return np.where(past < len(a), a[np.clip(past, 0, len(a) - 1)], rand)
+
+    read1 = np.where(past < 0, frag[:, :L], tail(a1))
+    mirrored = _COMPLEMENT[frag[rows, np.clip(insert - 1 - pos, 0, 2 * L - 1)]]
+    read2 = np.where(past < 0, mirrored, tail(a2))
+    flip = rng.random((B, L)) < 0.02
+    read2 = np.where(flip, _ACGTN[rng.integers(0, 4, size=(B, L))], read2)
+    for b in np.flatnonzero((np.arange(B) % 10 == 3) & (len1 >= 8)):
+        start = (7 * b) % (int(len1[b]) - 7)
+        read1[b, start:start + 8] = ord("N")
+    if dirty:
+        read1[7::16] = read2[7::16] = ord("N")
+    fill = [rng.integers(0, 256, size=(B, L)) if dirty else 0 for _ in range(3)]
+    read1 = np.where(pos < len1[:, None], read1, fill[0]).astype(np.uint8)
+    read2 = np.where(pos < len2[:, None], read2, fill[1]).astype(np.uint8)
+    idx2 = len2[:, None] - 1 - pos
+    seq2rc = np.where(idx2 >= 0, _COMPLEMENT[read2[rows, np.maximum(idx2, 0)]], fill[2])
+    return (read1, read2, seq2rc.astype(np.uint8), len1, len2,
+            np.minimum(len1, len2))
+
+
+PARAMS = dict(match_perc=80.0, mep=1e-6, qcut=15, qwin=5, qoff=33, ncut=7)
+
+
+def pair_quals(len1, len2, L: int, seed: int = 0, dirty: bool = False):
+    """``[2, B, L]`` uint8 qualities for ``pairs``: Q2..Q41, a fifth of the
+    reads ending in a tail of Q2..Q12 (for the quality trim); bytes past the
+    lengths 0, or random with ``dirty``."""
+    rng = np.random.default_rng(seed)
+    pos = np.arange(L)[None, :]
+    out = []
+    for ln in (len1, len2):
+        B = len(ln)
+        q = rng.integers(2, 42, size=(B, L))
+        tail = np.where(rng.random(B) < 0.2, rng.integers(1, 40, size=B), 0)
+        q = np.where(pos >= (ln - tail)[:, None], rng.integers(2, 13, size=(B, L)), q)
+        fill = rng.integers(0, 256, size=(B, L)) if dirty else 0
+        out.append(np.where(pos < ln[:, None], q + 33, fill).astype(np.uint8))
+    return np.stack(out)
+
+
+def seqpurge_scans(read1, read2, seq2rc, len1, len2, min_len, a1: bytes,
+                   a2: bytes, a_size: int = 20, overlap: int = 10):
+    """The engine's ten ``[B, L]`` int32 scan outputs for these tensors,
+    through the scans' wrappers (the kernels on a card)."""
+    B, L = read1.shape
+    scans = torch.empty((sp.SCAN_ROWS, B, L), dtype=torch.int32, device=read1.device)
+    pk.insert_scan_into(read1, seq2rc, min_len, scans[0], scans[1])
+    sp.adapter_evidence_into(read1, read2, len1, len2, a1[:overlap], a2[:overlap],
+                             *scans[2:6])
+    sp.adapter_scan_into(read1, len1, a1[:a_size], scans[6], scans[7])
+    sp.adapter_scan_into(read2, len2, a2[:a_size], scans[8], scans[9])
+    return scans
+
+
+def tie_pairs(L: int, seed: int = 0):
+    """Pairs whose best insert p-value is reached at two or more offsets,
+    for the adapters ``POLY``; rows of 700 and 712 bases need L >= 712.
+
+    Short rows: read 1 all A with one N at min_len - 6, read 2 all T but its
+    last five bases C. Offsets 5 and 6 then both compare min_len - 6
+    matching bases and nothing else, the smallest p of the row; 5 wins.
+    Long rows: the same without the N and with 150 C, so that offsets up to
+    about 150 count the same matches over windows that shrink with the
+    offset, and every offset from somewhat below 150 to 162 matches over
+    more than 537 bases, where the tail underflows to 0.0; the smallest of
+    them wins, a tie that spans lanes of a warp. Returns what ``pairs``
+    returns, and ``[2, B, L]`` qualities of Q2..Q41."""
+    rows = []
+    for n in (16, 17, 40, 63, 64, 65, 100, 151):
+        r1 = np.full(n, ord("A"), np.uint8)
+        r1[n - 6] = ord("N")
+        r2 = np.full(n, ord("T"), np.uint8)
+        r2[-5:] = ord("C")
+        rows.append((r1, r2))
+    for n in (700, 712):
+        r2 = np.full(n, ord("T"), np.uint8)
+        r2[-150:] = ord("C")
+        rows.append((np.full(n, ord("A"), np.uint8), r2))
+    B = len(rows)
+    read1 = np.zeros((B, L), np.uint8)
+    read2 = np.zeros((B, L), np.uint8)
+    len1 = np.zeros(B, np.int32)
+    len2 = np.zeros(B, np.int32)
+    for i, (r1, r2) in enumerate(rows):
+        read1[i, :len(r1)], read2[i, :len(r2)] = r1, r2
+        len1[i], len2[i] = len(r1), len(r2)
+    pos = np.arange(L)[None, :]
+    rows_ = np.arange(B)[:, None]
+    idx2 = len2[:, None] - 1 - pos
+    seq2rc = np.where(idx2 >= 0, _COMPLEMENT[read2[rows_, np.maximum(idx2, 0)]], 0)
+    rng = np.random.default_rng(seed)
+    inside = np.stack([pos < len1[:, None], pos < len2[:, None]])
+    quals = np.where(inside, rng.integers(35, 75, size=(2, B, L)), 0).astype(np.uint8)
+    return (read1, read2, seq2rc.astype(np.uint8), len1, len2, np.minimum(len1, len2),
+            quals)
+
+
+POLY = (b"A" * 20, b"T" * 20)   # adapters that the homopolymer pairs match
+
+
+def decide_case(B: int, L: int, device: torch.device, a1: bytes, a2: bytes,
+                ec: bool = False, seed: int = 0, dirty: bool = False) -> Case:
+    """``seqpurge_decide`` on the scans of ``adapter_pairs`` (the same
+    ``dirty``) with ``pair_quals``; see ``decide_case_for``."""
+    read1, read2, seq2rc, len1, len2, min_len = adapter_pairs(B, L, a1, a2, seed, dirty)
+    quals = pair_quals(len1, len2, L, seed, dirty)
+    return decide_case_for(read1, read2, seq2rc, len1, len2, min_len, quals, device,
+                           a1, a2, ec)
+
+
+def decide_case_for(read1, read2, seq2rc, len1, len2, min_len, quals,
+                    device: torch.device, a1: bytes, a2: bytes,
+                    ec: bool = False) -> Case:
+    """``seqpurge_decide`` on the scans of these numpy pairs (as ``pairs``
+    returns them) with these ``[2, B, L]`` qualities and SeqPurge's default
+    parameters. The kernel and the plain version each correct their own
+    copy of the reads with ``ec``.
+
+    Bytes: the counts the decisions must read (insert counts at offsets
+    1..min_len-1; adapter counts of pairs without an insert up to each
+    read's first hit, or its length), the bases of the final reads (the N
+    trim reads at least those), lengths, results and accumulators; a floor,
+    leaving out the evidence counts and table entries at the candidates and
+    the quality trim's reads. Operations: 4 per offset examined."""
+    from ..core.basicstats import match_probability_table
+    B, L = read1.shape
+    t = [torch.from_numpy(a).to(device) for a in (read1, read2, seq2rc, len1, len2, min_len)]
+    scans = seqpurge_scans(*t, a1, a2)
+    table = torch.from_numpy(match_probability_table(0.25, sp.MAXLEN)).to(device)
+    lens = torch.stack(t[3:5])
+    params = dict(PARAMS, ec=ec)
+
+    def inputs():
+        return (torch.from_numpy(np.stack([read1, read2])).to(device),
+                torch.from_numpy(quals.copy()).to(device),
+                torch.empty((3, B), dtype=torch.int32, device=device),
+                torch.zeros(sp.ACC_SIZE, dtype=torch.int64, device=device))
+
+    kb, kq, kout, kacc = inputs()
+    pb, pq, pout, pacc = inputs()
+    # the work these inputs need, from the plain version's own steps
+    cb, cq, cout, cacc = inputs()
+    sp.seqpurge_decide_plain(scans, cb, cq, lens, table, cout, cacc, **params)
+    best = sp.insert_offsets_plain(scans, lens, table, PARAMS["match_perc"], PARAMS["mep"])
+    hits = sp.first_hits_plain(scans, lens, table, PARAMS["match_perc"], PARAMS["mep"])
+    ln = lens.to(torch.int64)
+    examined = (ln.min(0).values - 1).clamp(min=0).sum()
+    for hit, n in zip(hits, ln):
+        examined += torch.where(hit >= 0, hit + 1, n)[best < 0].sum()
+    examined = int(examined)
+    return Case("seqpurge_decide", sp.seqpurge_decide_into,
+                lambda: sp.seqpurge_decide_into(scans, kb, kq, lens, table, kout,
+                                                kacc, **params),
+                lambda: sp.seqpurge_decide_plain(scans, pb, pq, lens, table, pout,
+                                                 pacc, **params),
+                lambda: ([kout, kacc, kb, kq], [pout, pacc, pb, pq]),
+                bytes=8 * examined + int(cout[1:].to(torch.int64).sum()) + 8 * B
+                + 12 * B + 8 * sp.ACC_SIZE,
+                ops=4 * examined)
 
 
 def device_ms(fn: Callable[[], None], calls: int = 10, runs: int = 5) -> float:

@@ -1,16 +1,19 @@
-"""SeqPurge's count scans on a torch device.
+"""SeqPurge's count scans and per-pair decisions on a torch device.
 
-Counterpart of ``ngsbits_tpu/ops/seqpurge.py``. Behavioral reference: ngs-bits
-SeqPurge AnalysisWorker.cpp:79-457. For every (pair, offset) the scans count
-matching and mismatching bases (``N`` on either side is skipped); the p-value
-lookups and decisions run on the host in float64 (``qc/seqpurge.py``).
+Counterpart of ``ngsbits_tpu/ops/seqpurge.py`` and of the host decisions in
+``ngsbits_tpu/qc/seqpurge.py``. Behavioral reference: ngs-bits SeqPurge
+AnalysisWorker.cpp:79-457. For every (pair, offset) the scans count matching
+and mismatching bases (``N`` on either side is skipped); the decisions then
+look the p-values up in float64 on the same device and leave only per-pair
+results and the batch's statistics (``seqpurge_decide_into``).
 
 The reference's early abort (AnalysisWorker.cpp:143-167) is outcome-neutral
 (a scan that aborts always fails the match-percentage test), so full counts
 give identical decisions.
 
 This module holds the wrappers of the two adapter kernels of
-``csrc/seqpurge.cu`` with their plain versions, under the dispatch rule of
+``csrc/seqpurge.cu`` and of the decisions' kernel (``csrc/seqpurge_decide.cu``)
+with their plain versions, under the dispatch rule of
 ``ops/pallas_kernels.py`` (CPU tensors take the plain version, CUDA tensors
 launch the kernel or raise), and the three scans as functions that allocate
 their outputs. The adapters are passed as bytes: they travel to the kernel by
@@ -78,7 +81,7 @@ def adapter_evidence_plain(read1, read2, len1, len2, a1, a2, m1, mm1, m2, mm2):
     base over contiguous slices (no ``[B, L, overlap]`` gather)."""
     if len(a1) != len(a2):
         raise ValueError(f"adapter windows differ: {len(a1)} and {len(a2)}")
-    if len(a1) == 0:
+    if len(a1) == 0 or read1.shape[1] == 0:
         for t in (m1, mm1, m2, mm2):
             t.zero_()
         return
@@ -219,3 +222,273 @@ def adapter_scan(read, length, adapter: bytes):
     m, mm = _outputs(read, 2)
     adapter_scan_into(read, length, adapter, m, mm)
     return m, mm
+
+
+# --------------------------------------------------------------------------
+# D: the per-pair decisions on the scans' counts
+# --------------------------------------------------------------------------
+
+MAXLEN = 1000   # the statistics' histograms, as SeqPurge's
+# the int64 accumulators of one batch, in this order in one flat tensor
+ACC_FIELDS = (("counters", 4), ("bases_remaining", MAXLEN), ("acons1", 200),
+              ("acons2", 200), ("mismatch_r1", MAXLEN), ("mismatch_r2", MAXLEN),
+              ("errors_per_read", MAXLEN))
+ACC_SIZE = sum(n for _, n in ACC_FIELDS)
+# what acc_fields(acc)["counters"] counts, in reads
+COUNTERS = ("reads_trimmed_insert", "reads_trimmed_adapter", "reads_trimmed_q",
+            "reads_trimmed_n")
+SCAN_ROWS = 10  # insert m, mm; evidence m1, mm1, m2, mm2; prefix m, mm of each read
+
+
+def acc_fields(acc):
+    """Named views of a flat ``[ACC_SIZE]`` accumulator (a tensor or a numpy
+    array): ``counters [4]`` (see ``COUNTERS``), ``bases_remaining``,
+    ``mismatch_r1``, ``mismatch_r2``, ``errors_per_read`` (``[MAXLEN]``) and
+    the consensus pileups ``acons1``, ``acons2`` (``[40, 5]``, A/C/G/T/N)."""
+    views, start = {}, 0
+    for name, n in ACC_FIELDS:
+        views[name] = acc[start:start + n]
+        start += n
+    for name in ("acons1", "acons2"):
+        views[name] = views[name].reshape(40, 5)
+    return views
+
+
+def complement_table(device) -> torch.Tensor:
+    """``[256]`` uint8: ACGTN to TGCAN, every other byte to itself."""
+    table = torch.arange(256, dtype=torch.int32)
+    for a, c in zip(b"ACGTN", b"TGCAN"):
+        table[a] = c
+    return table.to(torch.uint8).to(device)
+
+
+def _first_true(mask):
+    """Per row, the index of the first True, or -1."""
+    B, L = mask.shape
+    if L == 0:
+        return torch.full((B,), -1, dtype=torch.int64, device=mask.device)
+    return torch.where(mask.any(1), mask.to(torch.int8).argmax(1), -1)
+
+
+def _last_true(mask):
+    first = _first_true(mask.flip(1))
+    return torch.where(first >= 0, mask.shape[1] - 1 - first, -1)
+
+
+def _below_ratio(k, tot, match_perc):
+    """``100.0 * k / tot < match_perc`` in float64 where ``tot > 0``, as the
+    host computes it; False where ``tot == 0`` (the host's NaN passes)."""
+    ratio = 100.0 * k.to(torch.float64) / tot.clamp(min=1).to(torch.float64)
+    return (tot > 0) & (ratio < match_perc)
+
+
+def _lookup(table, tot, k):
+    """``table[tot, k]`` elementwise."""
+    return table.reshape(-1)[tot * table.shape[1] + k]
+
+
+def insert_offsets_plain(scans, lens, table, match_perc, mep):
+    """Step 1: each pair's insert offset, or -1. ``best[b]`` is the offset
+    1 <= o < min(len1, len2) of the smallest p-value among those that pass
+    the ratio test, ``p <= mep`` and the adapter evidence; the smallest such
+    offset among equal p-values."""
+    m, mm, m1, mm1, m2, mm2 = scans[:6].to(torch.int64)
+    len1, len2 = lens.to(torch.int64)
+    L = m.shape[1]
+    off = torch.arange(L, device=m.device)[None, :]
+    tot = m + mm
+    cand = (~_below_ratio(m, tot, match_perc) & (tot > 0) & (off >= 1)
+            & (off < torch.minimum(len1, len2)[:, None]))
+    pv = torch.where(cand, _lookup(table, tot, m), torch.inf)
+    maxmm = torch.where(off < 3, 0, torch.where(off < 6, 1, 2))
+    short = (mm1 <= maxmm) | (mm2 <= maxmm)
+    long = _lookup(table, m1 + mm1, m1) * _lookup(table, m2 + mm2, m2) <= mep
+    ok = cand & (pv <= mep) & torch.where(off < 10, short, long)
+    if L == 0:
+        return _first_true(ok)
+    return torch.where(ok.any(1), torch.where(ok, pv, torch.inf).argmin(1), -1)
+
+
+def first_hits_plain(scans, lens, table, match_perc, mep):
+    """Step 3's search on every pair: per read, the first offset o < len
+    whose adapter-prefix counts pass the ratio test and ``p <= mep``, or -1.
+    Returns (read 1's, read 2's)."""
+    hits = []
+    for k, ln in zip((6, 8), lens.to(torch.int64)):
+        am, amm = scans[k].to(torch.int64), scans[k + 1].to(torch.int64)
+        t = am + amm
+        off = torch.arange(am.shape[1], device=am.device)[None, :]
+        ok = (~_below_ratio(am, t, match_perc) & (off < ln[:, None])
+              & (_lookup(table, t, am) <= mep))
+        hits.append(_first_true(ok))
+    return tuple(hits)
+
+
+def _trim_quality(qual, count, qcut, qwin, qoff):
+    """FastqEntry::trimQuality on each row: the last window of ``qwin``
+    bases whose quality sum reaches ``qcut * qwin``, then trailing bases
+    below ``qcut``; rows shorter than the window stay as they are."""
+    B, L = qual.shape
+    if L < qwin:
+        return count
+    pos = torch.arange(L, device=qual.device)[None, :]
+    q = qual.to(torch.int64) - qoff
+    cums = torch.cat([torch.zeros((B, 1), dtype=torch.int64, device=qual.device),
+                      torch.where(pos < count[:, None], q, 0).cumsum(1)], dim=1)
+    win = cums[:, qwin:] - cums[:, :L + 1 - qwin]   # the window starting at i
+    i = torch.arange(L + 1 - qwin, device=qual.device)[None, :]
+    start = _last_true((i <= count[:, None] - qwin) & (win >= qcut * qwin))
+    last = _last_true((q >= qcut) & (pos < (start + qwin)[:, None]))
+    return torch.where(count < qwin, count, torch.where(start >= 0, last + 1, 0))
+
+
+def _trim_n(bases, count, ncut):
+    """FastqEntry::trimN on each row: the first run of ``ncut`` Ns cuts the
+    row at the run's start."""
+    B, L = bases.shape
+    if L < ncut:
+        return count
+    pos = torch.arange(L, device=bases.device)[None, :]
+    isn = (bases == N_CODE) & (pos < count[:, None])
+    cums = torch.cat([torch.zeros((B, 1), dtype=torch.int64, device=bases.device),
+                      isn.to(torch.int64).cumsum(1)], dim=1)
+    first = _first_true(cums[:, ncut:] - cums[:, :L + 1 - ncut] == ncut)
+    return torch.where((count >= ncut) & (first >= 0), first, count)
+
+
+def _correct_errors(bases, quals, has, count, acc):
+    """-ec (AnalysisWorker.cpp:19-77) on the insert pairs, in place: each
+    mismatch of read 1's pos against read 2's count-1-pos goes to the base
+    of higher quality."""
+    B, L = bases.shape[1:]
+    comp = complement_table(bases.device)
+    off = torch.arange(L, device=bases.device)[None, :]
+    count = torch.where(has, count, 0)[:, None]
+    inside = off < count
+    mirror = (count - 1 - off).clamp(min=0)   # the partner of column off
+    b1, b2 = bases
+    q1, q2 = quals
+    b1m, b2m, q1m, q2m = (torch.gather(t, 1, mirror) for t in (b1, b2, q1, q2))
+    mismatch = inside & (b1 != comp[b2m.long()])
+    r1 = mismatch & (q1 < q2m)                           # read 1's base loses
+    r2 = torch.gather(mismatch & (q1 > q2m), 1, mirror) & inside  # at read 2's column
+    f = acc_fields(acc)
+    n = min(L, MAXLEN)
+    f["mismatch_r1"][:n] += r1.sum(0)[:n]
+    f["mismatch_r2"][:n] += r2.sum(0)[:n]
+    errors = mismatch.sum(1)
+    f["errors_per_read"] += torch.bincount(errors[(errors > 0) & (errors < MAXLEN)],
+                                           minlength=MAXLEN)
+    bases[0] = torch.where(r1, comp[b2m.long()], b1)
+    quals[0] = torch.where(r1, q2m, q1)
+    bases[1] = torch.where(r2, comp[b1m.long()], b2)
+    quals[1] = torch.where(r2, q1m, q2)
+
+
+def seqpurge_decide_plain(scans, bases, quals, lens, table, out, acc, *,
+                          match_perc, mep, qcut, qwin, qoff, ncut, ec):
+    """Plain PyTorch D: the JAX package's numpy decisions
+    (``ngsbits_tpu/qc/seqpurge.py:267-382``) as dense ``[B, L]`` tensor ops
+    in float64, on any device. See ``seqpurge_decide_into``."""
+    B, L = scans.shape[1:]
+    len1, len2 = lens.to(torch.int64)
+    f = acc_fields(acc)
+    counters = f["counters"]
+
+    # 1. insert match, consensus pileups, -ec
+    best = insert_offsets_plain(scans, lens, table, match_perc, mep)
+    has = best >= 0
+    nl = len2 - best
+    new1 = torch.where(has, torch.minimum(len1, nl), len1)
+    new2 = torch.where(has, torch.minimum(len2, nl), len2)
+    counters[0] += 2 * has.sum()
+    if bool(has.any()):
+        pos = nl[:, None] + torch.arange(40, device=scans.device)[None, :]
+        for read, ln, name in ((bases[0], len1, "acons1"), (bases[1], len2, "acons2")):
+            valid = has[:, None] & (pos < ln[:, None])
+            window = torch.gather(read, 1, pos.clamp(0, L - 1))
+            for i, code in enumerate(b"ACGTN"):
+                f[name][:, i] += ((window == code) & valid).sum(0)
+        if ec:
+            _correct_errors(bases, quals, has, torch.minimum(new1, new2), acc)
+
+    # 3. adapter match on the pairs without an insert
+    off_f, off_r = first_hits_plain(scans, lens, table, match_perc, mep)
+    hit = ~has & ((off_f >= 0) | (off_r >= 0))
+    new1 = torch.where(hit, torch.minimum(new1, torch.where(off_f >= 0, off_f, off_r)), new1)
+    new2 = torch.where(hit, torch.minimum(new2, torch.where(off_r >= 0, off_r, off_f)), new2)
+    counters[1] += 2 * hit.sum()
+
+    # 4. quality, then N trimming
+    if qcut > 0:
+        t1 = _trim_quality(quals[0], new1, qcut, qwin, qoff)
+        t2 = _trim_quality(quals[1], new2, qcut, qwin, qoff)
+        counters[2] += (t1 < new1).sum() + (t2 < new2).sum()
+        new1, new2 = t1, t2
+    if ncut > 0:
+        t1 = _trim_n(bases[0], new1, ncut)
+        t2 = _trim_n(bases[1], new2, ncut)
+        counters[3] += (t1 < new1).sum() + (t2 < new2).sum()
+        new1, new2 = t1, t2
+
+    # 5. per-pair results and statistics
+    for new in (new1, new2):
+        f["bases_remaining"] += torch.bincount(new[new < MAXLEN], minlength=MAXLEN)
+    out[0] = best
+    out[1] = new1
+    out[2] = new2
+
+
+def seqpurge_decide_into(scans: torch.Tensor, bases: torch.Tensor,
+                         quals: torch.Tensor, lens: torch.Tensor,
+                         table: torch.Tensor, out: torch.Tensor,
+                         acc: torch.Tensor, *, match_perc: float, mep: float,
+                         qcut: int, qwin: int, qoff: int, ncut: int,
+                         ec: bool) -> None:
+    """SeqPurge's per-pair decisions (AnalysisWorker.cpp:79-457,
+    FastqFileStream.cpp:52-115, OutputWorker.cpp:34-77), which the JAX
+    package runs on the host (``ngsbits_tpu/qc/seqpurge.py:267-382``,
+    ``ngsbits_tpu/native/seqpurge.cpp:116-339``): the insert match, with
+    ``ec`` error correction of the insert pairs, the adapter match of the
+    others, quality and N trimming, and the statistics.
+
+    ``scans`` is ``[10, B, L]`` int32, the three scans' outputs in this
+    order: insert matches and mismatches, the four adapter evidence counts,
+    the adapter-prefix matches and mismatches of read 1 and of read 2.
+    ``bases``/``quals`` are ``[2, B, L]`` uint8 ASCII (read 1, read 2;
+    corrected in place with ``ec``; bytes past a read's length are never
+    read), ``lens`` ``[2, B]`` int32 in [0, L], ``table`` the ``[T, T]``
+    float64 binomial tail of ``core/basicstats.py::match_probability_table``
+    with T >= L and T > ``MAX_ADAPTER``. Writes ``out [3, B]`` int32 (the
+    insert offset or -1, the new length of read 1, of read 2) and adds into
+    ``acc [ACC_SIZE]`` int64 (``acc_fields``). The float64 comparisons are
+    the host's, operation for operation, so every decision is the same."""
+    _, B, L = scans.shape
+    T = table.shape[0]
+    if table.dim() != 2 or table.shape[1] != T or T < max(L, MAX_ADAPTER + 1):
+        raise ValueError(f"table: shape {tuple(table.shape)}, needs [T, T] "
+                         f"with T >= {max(L, MAX_ADAPTER + 1)}")
+    params = dict(match_perc=float(match_perc), mep=float(mep), qcut=int(qcut),
+                  qwin=int(qwin), qoff=int(qoff), ncut=int(ncut), ec=bool(ec))
+    if _route(scans, bases, quals, lens, table, out, acc) == "cpu":
+        return seqpurge_decide_plain(scans, bases, quals, lens, table, out, acc,
+                                     **params)
+    _check("scans", scans, torch.int32, (SCAN_ROWS, B, L))
+    _check("bases", bases, torch.uint8, (2, B, L))
+    _check("quals", quals, torch.uint8, (2, B, L))
+    _check("lens", lens, torch.int32, (2, B))
+    _check("table", table, torch.float64, (T, T))
+    _check("out", out, torch.int32, (3, B))
+    _check("acc", acc, torch.int64, (ACC_SIZE,))
+    if B == 0:
+        return
+    rc = _lib().ngs_seqpurge_decide(
+        _ptr(scans), _ptr(bases), _ptr(quals), _ptr(lens), _ptr(table), T, B, L,
+        params["match_perc"], params["mep"], params["qcut"], params["qwin"],
+        params["qoff"], params["ncut"], int(params["ec"]), _ptr(out), _ptr(acc),
+        ACC_SIZE, _stream(scans))
+    _launched("seqpurge_decide", rc)
+    seqpurge_decide_into.launches += 1
+
+
+seqpurge_decide_into.launches = 0

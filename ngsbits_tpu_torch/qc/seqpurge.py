@@ -1,22 +1,29 @@
-"""SeqPurge trimming engine: count scans on a torch device, decisions and
-statistics on the host.
+"""SeqPurge trimming engine: count scans and per-pair decisions on a torch
+device, the statistics folded on the host.
 
 Counterpart of ``ngsbits_tpu/qc/seqpurge.py``. Behavioral reference: ngs-bits
 SeqPurge (AnalysisWorker.cpp:79-457, OutputWorker.cpp:19-106,
 Auxilary.h:100-280, FastqFileStream.cpp:52-115 for trimQuality/trimN).
 
-Per batch, the host pads both mates to one width L and builds the reverse
-complement of read 2; the three scans (insert match, adapter evidence at each
-candidate insert, adapter prefix on each mate) run on the engine's device and
-their ten ``[B, L]`` int32 outputs come back in one copy. Every p-value
-comparison stays on the host as float64 lookups into the exact binomial-tail
-table (core/basicstats.py), so decisions are bit-identical to the JAX
-package's. There is no host-only route: the scans always run on the device
-the engine was given.
+Per batch, the host copies the bases and quals of both mates, padded to one
+width L, and their lengths into one pinned buffer, and one copy takes them to
+the device. There the reverse complement of read 2 is gathered through a
+complement table, the three scans (insert match, adapter evidence at each
+candidate insert, adapter prefix on each mate) fill ten ``[B, L]`` int32
+counts, and one launch of ``seqpurge_decide`` turns them into each pair's
+insert offset and new lengths, corrects the reads with -ec, and adds the
+batch's statistics into int64 accumulators. Every p-value comparison is a
+float64 lookup into the exact binomial-tail table (core/basicstats.py), made
+as the host makes it, so decisions are bit-identical to the JAX package's.
+One copy brings back the per-pair results and the accumulators (with -ec also
+the corrected reads); no count array leaves the device. There is no host-only
+route: everything runs on the device the engine was given (on the CPU the
+kernels' plain versions).
 """
 
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass, field, fields
 
@@ -27,18 +34,11 @@ from ..core.basicstats import match_probability_table
 from ..io import native
 from ..io.fastq import FastqBatch
 from ..ops.pallas_kernels import insert_scan_into
-from ..ops.seqpurge import adapter_evidence_into, adapter_scan_into
+from ..ops.seqpurge import (ACC_SIZE, COUNTERS, MAXLEN, SCAN_ROWS, acc_fields,
+                            adapter_evidence_into, adapter_scan_into,
+                            complement_table, seqpurge_decide_into)
 from ..utils.backend import device as default_device
 from .read_stats import FORWARD, REVERSE, ReadStatistics
-
-MAXLEN = 1000
-_COMPLEMENT = np.zeros(256, dtype=np.uint8)
-for _a, _b in zip(b"ACGTN", b"TGCAN"):
-    _COMPLEMENT[_a] = _b
-for _c in range(256):
-    if _COMPLEMENT[_c] == 0:
-        _COMPLEMENT[_c] = _c
-
 
 @dataclass
 class SeqPurgeParams:
@@ -100,16 +100,6 @@ def stats_from_dict(d: dict) -> SeqPurgeStats:
                                 else v) for k, v in d.items()})
 
 
-_ACGTN = np.frombuffer(b"ACGTN", dtype=np.uint8)
-
-
-def _pileup_add(acons: np.ndarray, windows: np.ndarray, mask: np.ndarray):
-    """acons[col, base] += counts of base codes in windows[B, 40] where mask."""
-    for bi, code in enumerate(_ACGTN):
-        hit = (windows == code) & mask
-        acons[:, bi] += hit.sum(axis=0)
-
-
 class SeqPurgeEngine:
     def __init__(self, params: SeqPurgeParams, qc: ReadStatistics | None = None,
                  device: torch.device | None = None):
@@ -117,102 +107,40 @@ class SeqPurgeEngine:
         self.stats = SeqPurgeStats()
         self.qc = qc
         self.device = default_device() if device is None else torch.device(device)
-        self.table = match_probability_table(0.25, MAXLEN)
+        self.table = torch.from_numpy(match_probability_table(0.25, MAXLEN)).to(self.device)
+        self._complement = complement_table(self.device)
+        self._decide = dict(match_perc=params.match_perc, mep=params.mep,
+                            qcut=params.qcut, qwin=params.qwin, qoff=params.qoff,
+                            ncut=params.ncut, ec=params.ec)
+        # one batch's buffer on the device and its pinned host twin (on the
+        # CPU the same tensor), grown as batches need
+        self._work = self._host = None
         # host seconds per stage (the scans: device seconds on a card)
         self.seconds = dict.fromkeys(("qc", "prepare", "scans", "fetch",
                                       "decisions"), 0.0)
 
-    # ------------- trimming primitives -------------
-    def trim_quality(self, quals: np.ndarray, lengths: np.ndarray) -> np.ndarray:
-        """FastqEntry::trimQuality semantics; returns new lengths."""
-        cutoff = self.p.qcut
-        window = self.p.qwin
-        B, L = quals.shape
-        q = quals.astype(np.int32) - self.p.qoff
-        pos = np.arange(L)[None, :]
-        inside = pos < lengths[:, None]
-        qm = np.where(inside, q, 0)
-        cums = np.concatenate([np.zeros((B, 1), np.int64), np.cumsum(qm, axis=1)], axis=1)
-        # window sums starting at i (valid for i <= count-window)
-        win = cums[:, window:] - cums[:, :-window] if L >= window else np.zeros((B, 0), np.int64)
-        Wn = win.shape[1]
-        i_grid = np.arange(Wn)[None, :]
-        valid = i_grid <= (lengths[:, None] - window)
-        ok = valid & (win >= cutoff * window)
-        if Wn == 0:  # every read shorter than the window -> unchanged below
-            any_ok = np.zeros(B, bool)
-            i_max = np.zeros(B, np.int64)
-        else:
-            any_ok = ok.any(axis=1)
-            # largest i with ok
-            i_max = Wn - 1 - np.argmax(ok[:, ::-1], axis=1)
-        count_new = np.where(any_ok, i_max + window, 0)
-        # strip trailing bases below cutoff
-        ge = (q >= cutoff) & (pos < count_new[:, None])
-        has_ge = ge.any(axis=1)
-        last_ge = L - 1 - np.argmax(ge[:, ::-1], axis=1)
-        count_final = np.where(any_ok, np.where(has_ge, last_ge + 1, 0), 0)
-        # too-small reads unchanged
-        out = np.where(lengths < window, lengths, count_final).astype(np.int32)
-        return out
-
-    def trim_n(self, bases: np.ndarray, lengths: np.ndarray) -> np.ndarray:
-        """FastqEntry::trimN semantics; returns new lengths."""
-        num_n = self.p.ncut
-        B, L = bases.shape
-        pos = np.arange(L)[None, :]
-        inside = pos < lengths[:, None]
-        isn = (bases == ord("N")) & inside
-        cums = np.concatenate([np.zeros((B, 1), np.int64), np.cumsum(isn, axis=1)], axis=1)
-        if L >= num_n:
-            run = cums[:, num_n:] - cums[:, :-num_n]  # run ending at i = idx+num_n-1
-            Rn = run.shape[1]
-            end_i = np.arange(Rn)[None, :] + num_n - 1
-            hit = (run == num_n) & (end_i < lengths[:, None])
-            any_hit = hit.any(axis=1)
-            first = np.argmax(hit, axis=1)  # index into run -> end_i = first+num_n-1
-            count_new = first  # = (first+num_n-1) - num_n + 1
-            out = np.where((lengths >= num_n) & any_hit, count_new, lengths)
-        else:
-            out = lengths
-        return out.astype(np.int32)
-
-    # ------------- main pair processing -------------
-    def _scan(self, padded: np.ndarray, lens: np.ndarray) -> np.ndarray:
-        """The three scans on the engine's device. ``padded`` is ``[3, B, L]``
-        uint8 (read 1, read 2, reverse complement of read 2), ``lens`` is
-        ``[3, B]`` int32 (len1, len2, min_len). Returns ``[10, B, L]`` int32
-        on the host: insert matches and mismatches, the four adapter
-        evidence counts, and the adapter-prefix matches and mismatches of
-        read 1 and of read 2."""
-        p = self.p
-        dev = self.device
-        _, B, L = padded.shape
-        t0 = time.perf_counter()
-        seq1, read2, seq2rc = torch.from_numpy(padded).to(dev)
-        len1, len2, min_len = torch.from_numpy(lens).to(dev)
-        out = torch.empty((10, B, L), dtype=torch.int32, device=dev)
-        on_card = dev.type == "cuda"
-        if on_card:
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-        t1 = time.perf_counter()
-        insert_scan_into(seq1, seq2rc, min_len, out[0], out[1])
-        adapter_evidence_into(seq1, read2, len1, len2,
-                              p.a1[:p.adapter_overlap], p.a2[:p.adapter_overlap],
-                              out[2], out[3], out[4], out[5])
-        adapter_scan_into(seq1, len1, p.a1[:p.a_size], out[6], out[7])
-        adapter_scan_into(read2, len2, p.a2[:p.a_size], out[8], out[9])
-        if on_card:
-            end.record()
-        t2 = time.perf_counter()
-        host = out.cpu().numpy()   # waits for the scans
-        t3 = time.perf_counter()
-        self.seconds["prepare"] += t1 - t0
-        self.seconds["scans"] += (start.elapsed_time(end) / 1000.0 if on_card
-                                  else t2 - t1)
-        self.seconds["fetch"] += t3 - t2
-        return host
+    def _buffers(self, B: int, L: int):
+        """Views of one batch in the device buffer and in its host twin, at
+        byte offsets: accumulators (int64) | results [3, B] (int32) | bases
+        and quals [4, B, L] (uint8: read 1, read 2, their quals) | lengths
+        [2, B] (int32). The upload covers the last two parts, the fetch the
+        first two (and the reads with -ec). Bytes past a read's length are
+        whatever the buffer last held; nothing reads them."""
+        parts = (("acc", torch.int64, (ACC_SIZE,)), ("out", torch.int32, (3, B)),
+                 ("reads", torch.uint8, (4, B, L)), ("lens", torch.int32, (2, B)))
+        offsets, size = {}, 0
+        for name, dtype, shape in parts:
+            offsets[name] = size
+            size += dtype.itemsize * math.prod(shape)
+        offsets["end"] = size
+        if self._work is None or self._work.numel() < size:
+            self._work = torch.empty(size, dtype=torch.uint8, device=self.device)
+            self._host = (torch.empty(size, dtype=torch.uint8, pin_memory=True)
+                          if self.device.type == "cuda" else self._work)
+        views = [{name: buf[offsets[name]:offsets[name] + dtype.itemsize
+                            * math.prod(shape)].view(dtype).view(shape)
+                  for name, dtype, shape in parts} for buf in (self._work, self._host)]
+        return views[0], views[1], offsets
 
     def process_batch(self, b1: FastqBatch, b2: FastqBatch):
         """Trim one batch of read pairs. Returns (len1, len2), the new
@@ -258,173 +186,98 @@ class SeqPurgeEngine:
                     raise ValueError(
                         f"Headers of reads do not match:\n{t1.decode()}\n{t2.decode()}")
 
-        len1 = b1.lengths.astype(np.int32).copy()
-        len2 = b2.lengths.astype(np.int32).copy()
+        len1 = b1.lengths.astype(np.int32)
+        len2 = b2.lengths.astype(np.int32)
         if int(len1.max(initial=0)) >= MAXLEN or int(len2.max(initial=0)) >= MAXLEN:
             raise ValueError(f"Read length unsupported! A maximum read length of {MAXLEN} is supported!")
         L = max(b1.bases.shape[1], b2.bases.shape[1])
-        padded = np.zeros((3, B, L), dtype=np.uint8)
-        seq1, read2, seq2rc = padded
-        seq1[:, :b1.bases.shape[1]] = b1.bases
-        read2[:, :b2.bases.shape[1]] = b2.bases
-        # revcomp(read2), zero-padded
-        pos = np.arange(L)[None, :]
-        idx2 = len2[:, None] - 1 - pos
-        seq2rc[:] = np.where(idx2 >= 0, _COMPLEMENT[read2[np.arange(B)[:, None], np.maximum(idx2, 0)]], 0)
-        min_len = np.minimum(len1, len2)
-        self.seconds["prepare"] += time.perf_counter() - t1
 
-        m, mm, m1, mm1, m2, mm2, am1, amm1, am2, amm2 = self._scan(
-            padded, np.stack([len1, len2, min_len]))
-
-        # ---- decisions (host, float64) ----
+        # ---- prepare: one upload of both mates' reads and lengths ----
+        t1 = time.perf_counter()
+        dev, host, offsets = self._buffers(B, L)
+        reads = host["reads"].numpy()
+        for row, a in enumerate((b1.bases, b2.bases, b1.quals, b2.quals)):
+            reads[row, :, :a.shape[1]] = a
+        lens = host["lens"].numpy()
+        lens[0] = len1
+        lens[1] = len2
+        on_card = self.device.type == "cuda"
+        if on_card:
+            up = slice(offsets["reads"], offsets["end"])
+            self._work[up].copy_(self._host[up], non_blocking=True)
+        seq1, read2 = dev["reads"][:2]
+        d_len1, d_len2 = dev["lens"]
+        # reverse complement of read 2 through the complement table, 0 past len2
+        idx = d_len2[:, None] - 1 - torch.arange(L, dtype=torch.int32, device=self.device)
+        seq2rc = torch.where(idx >= 0, self._complement[
+            torch.gather(read2, 1, idx.clamp(min=0).long()).long()], 0)
+        min_len = torch.minimum(d_len1, d_len2)
         t2 = time.perf_counter()
-        tot = m + mm
-        offsets = np.arange(L)[None, :]
-        with np.errstate(divide="ignore", invalid="ignore"):
-            ratio_ok = (tot > 0) & ~(100.0 * m / np.maximum(tot, 1) < p.match_perc)
-        # evaluate the binomial-tail table only where the cheap ratio test
-        # passes
-        cand0 = ratio_ok & (offsets >= 1) & (offsets < min_len[:, None])
-        pv = np.full((B, L), np.inf)
-        rows, cols = np.nonzero(cand0)
-        pv[rows, cols] = self.table[tot[rows, cols], m[rows, cols]]
-        cand = cand0 & (pv <= p.mep)
+        self.seconds["prepare"] += t2 - t1
 
-        maxmm = np.where(offsets < 3, 0, np.where(offsets < 6, 1, 2))
-        pass_short = (mm1 <= maxmm) | (mm2 <= maxmm)
-        ok = cand & (offsets < 10) & pass_short
-        long_rows, long_cols = np.nonzero(cand & (offsets >= 10))
-        if len(long_rows):
-            p1 = self.table[m1[long_rows, long_cols] + mm1[long_rows, long_cols],
-                            m1[long_rows, long_cols]]
-            p2 = self.table[m2[long_rows, long_cols] + mm2[long_rows, long_cols],
-                            m2[long_rows, long_cols]]
-            ok[long_rows, long_cols] = (p1 * p2) <= p.mep
+        # ---- the three scans, then the decisions, on the same stream ----
+        if on_card:
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            marks[0].record()
+        scans = torch.empty((SCAN_ROWS, B, L), dtype=torch.int32, device=self.device)
+        insert_scan_into(seq1, seq2rc, min_len, scans[0], scans[1])
+        adapter_evidence_into(seq1, read2, d_len1, d_len2,
+                              p.a1[:p.adapter_overlap], p.a2[:p.adapter_overlap],
+                              *scans[2:6])
+        adapter_scan_into(seq1, d_len1, p.a1[:p.a_size], scans[6], scans[7])
+        adapter_scan_into(read2, d_len2, p.a2[:p.a_size], scans[8], scans[9])
+        t3 = time.perf_counter()
+        if on_card:
+            marks[1].record()
+        dev["acc"].zero_()
+        seqpurge_decide_into(scans, dev["reads"][:2], dev["reads"][2:], dev["lens"],
+                             self.table, dev["out"], dev["acc"], **self._decide)
+        if on_card:
+            marks[2].record()
+        t4 = time.perf_counter()
 
-        p_masked = np.where(ok, pv, np.inf)
-        best_offset = np.where(ok.any(axis=1), np.argmin(p_masked, axis=1), -1)
-        has_insert = best_offset != -1
+        # ---- fetch: per-pair results and accumulators (and -ec's reads) ----
+        end = offsets["lens"] if p.ec else offsets["reads"]
+        if on_card:
+            self._host[:end].copy_(self._work[:end], non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+        out = host["out"].numpy()
+        new_len1 = out[1].copy()
+        new_len2 = out[2].copy()
+        if p.ec:
+            for row, a in enumerate((b1.bases, b2.bases, b1.quals, b2.quals)):
+                a[:] = reads[row, :, :a.shape[1]]
+        t5 = time.perf_counter()
 
-        new_len1 = len1.copy()
-        new_len2 = len2.copy()
-        ins_idx = np.flatnonzero(has_insert)
-        if len(ins_idx):
-            nl = len2[ins_idx] - best_offset[ins_idx]
-            new_len1[ins_idx] = np.minimum(len1[ins_idx], nl)
-            new_len2[ins_idx] = np.minimum(len2[ins_idx], nl)
-            self.stats.reads_trimmed_insert += 2.0 * len(ins_idx)
-
-            # consensus adapters
-            w = np.arange(40)[None, :]
-            a1_pos = nl[:, None] + w
-            a1_valid = a1_pos < len1[ins_idx][:, None]
-            win1 = seq1[ins_idx[:, None], np.minimum(a1_pos, L - 1)]
-            _pileup_add(self.stats.acons1, win1, a1_valid)
-            a2_pos = (len2[ins_idx] - best_offset[ins_idx])[:, None] + w
-            a2_valid = a2_pos < len2[ins_idx][:, None]
-            win2 = read2[ins_idx[:, None], np.minimum(a2_pos, L - 1)]
-            _pileup_add(self.stats.acons2, win2, a2_valid)
-
-            # error correction on truncated pair
-            if p.ec:
-                self._correct_errors(b1, b2, seq1, read2, new_len1, new_len2, ins_idx, L)
-
-        # ---- steps 2+3: adapter match on non-insert pairs ----
-        noins = np.flatnonzero(~has_insert)
-        if len(noins):
-            def first_hit(msub, mmsub, lens):
-                t = msub + mmsub
-                with np.errstate(divide="ignore", invalid="ignore"):
-                    ratio = 100.0 * msub / t
-                # (ratio==nan for t==0 passes the ~< test, like the dense
-                # formulation); table gathered sparsely where it can matter
-                okm = ~(ratio < p.match_perc) & (offsets < lens[:, None])
-                rr, cc = np.nonzero(okm)
-                if len(rr):
-                    pp = self.table[t[rr, cc], msub[rr, cc]]
-                    okm[rr, cc] = pp <= p.mep
-                any_ = okm.any(axis=1)
-                off = np.where(any_, np.argmax(okm, axis=1), -1)
-                return off
-
-            off_f = first_hit(am1[noins], amm1[noins], len1[noins])
-            off_r = first_hit(am2[noins], amm2[noins], len2[noins])
-            hit = (off_f != -1) | (off_r != -1)
-            eff_f = np.where(off_f != -1, off_f, off_r)
-            eff_r = np.where(off_r != -1, off_r, off_f)
-            sel = np.flatnonzero(hit)
-            if len(sel):
-                g = noins[sel]
-                new_len1[g] = np.minimum(new_len1[g], eff_f[sel])
-                new_len2[g] = np.minimum(new_len2[g], eff_r[sel])
-                self.stats.reads_trimmed_adapter += 2 * len(sel)
-
-        # ---- quality trimming ----
-        if p.qcut > 0:
-            q1 = self.trim_quality(b1.quals, new_len1)
-            self.stats.reads_trimmed_q += int((q1 < new_len1).sum())
-            new_len1 = q1
-            q2 = self.trim_quality(b2.quals, new_len2)
-            self.stats.reads_trimmed_q += int((q2 < new_len2).sum())
-            new_len2 = q2
-
-        # ---- N trimming ----
-        if p.ncut > 0:
-            n1 = self.trim_n(b1.bases, new_len1)
-            self.stats.reads_trimmed_n += int((n1 < new_len1).sum())
-            new_len1 = n1
-            n2 = self.trim_n(b2.bases, new_len2)
-            self.stats.reads_trimmed_n += int((n2 < new_len2).sum())
-            new_len2 = n2
-
-        # ---- output statistics (OutputWorker.cpp:34-77) ----
-        self.stats.read_num += 2 * B
-        np.add.at(self.stats.bases_remaining, new_len1, 1)
-        np.add.at(self.stats.bases_remaining, new_len2, 1)
-        nz1 = len1 > 0
-        self.stats.bases_perc_trim_sum += float(
-            ((len1[nz1] - new_len1[nz1]) / len1[nz1]).sum())
-        nz2 = len2 > 0
-        self.stats.bases_perc_trim_sum += float(
-            ((len2[nz2] - new_len2[nz2]) / len2[nz2]).sum())
-
-        self.seconds["decisions"] += time.perf_counter() - t2
+        # ---- fold the batch's statistics ----
+        self._fold(acc_fields(host["acc"].numpy()), B, len1, len2, new_len1, new_len2)
+        t6 = time.perf_counter()
+        if on_card:
+            self.seconds["scans"] += marks[0].elapsed_time(marks[1]) / 1000.0
+            self.seconds["decisions"] += marks[1].elapsed_time(marks[2]) / 1000.0
+        else:
+            self.seconds["scans"] += t3 - t2
+            self.seconds["decisions"] += t4 - t3
+        self.seconds["fetch"] += t5 - t4
+        self.seconds["decisions"] += t6 - t5
         return new_len1, new_len2
 
-    def _correct_errors(self, b1, b2, seq1, read2, new_len1, new_len2, ins_idx, L):
-        """Error correction (AnalysisWorker.cpp:19-77) on insert-matched pairs."""
-        p = self.p
-        sub = ins_idx
-        count = np.minimum(new_len1[sub], new_len2[sub])  # == both after trunc
-        pos = np.arange(L)[None, :]
-        i_valid = pos < count[:, None]
-        i2 = count[:, None] - 1 - pos  # mirrored index into read2
-        i2c = np.maximum(i2, 0)
-        b1b = seq1[sub][:, :L]
-        b2b = read2[sub[:, None], i2c]          # read2 bases at i2
-        mismatch = i_valid & (b1b != _COMPLEMENT[b2b])
-        q1 = b1.quals[sub][:, :L].astype(np.int32) - p.qoff
-        q2r = b2.quals[sub[:, None], i2c].astype(np.int32) - p.qoff
-        r2_wins = mismatch & (q1 > q2r)   # correct R2
-        r1_wins = mismatch & (q1 < q2r)   # correct R1
-        # apply corrections in place
-        rows1, cols1 = np.nonzero(r1_wins)
-        if len(rows1):
-            gi = sub[rows1]
-            b1.bases[gi, cols1] = _COMPLEMENT[b2.bases[gi, i2c[rows1, cols1]]]
-            b1.quals[gi, cols1] = b2.quals[gi, i2c[rows1, cols1]]
-            np.add.at(self.stats.mismatch_r1, cols1, 1)
-        rows2, cols2 = np.nonzero(r2_wins)
-        if len(rows2):
-            gi = sub[rows2]
-            tgt = i2c[rows2, cols2]
-            b2.bases[gi, tgt] = _COMPLEMENT[seq1[gi, cols2]]
-            b2.quals[gi, tgt] = b1.quals[gi, cols2]
-            np.add.at(self.stats.mismatch_r2, tgt, 1)
-        mm_count = mismatch.sum(axis=1)
-        nzm = mm_count > 0
-        np.add.at(self.stats.errors_per_read, mm_count[nzm], 1)
+    def _fold(self, acc: dict, B: int, len1, len2, new_len1, new_len2):
+        """Adds one batch's accumulators into ``self.stats``; the removed
+        bases' share is summed here, over the new lengths, as the JAX
+        package's numpy route sums it (OutputWorker.cpp:34-77)."""
+        s = self.stats
+        for name, n in zip(COUNTERS, acc["counters"]):
+            setattr(s, name, getattr(s, name) + int(n))
+        for name in _ARRAY_FIELDS:
+            getattr(s, name)[...] += acc[name]
+        s.read_num += 2 * B
+        nz1 = len1 > 0
+        s.bases_perc_trim_sum += float(
+            ((len1[nz1] - new_len1[nz1]) / len1[nz1]).sum())
+        nz2 = len2 > 0
+        s.bases_perc_trim_sum += float(
+            ((len2[nz2] - new_len2[nz2]) / len2[nz2]).sum())
 
     # ------------- summary -------------
     def write_summary(self, out, params_a1: bytes, params_a2: bytes):

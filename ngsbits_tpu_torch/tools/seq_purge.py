@@ -3,8 +3,8 @@
 Counterpart of ``ngsbits_tpu/tools/seq_purge.py``: the same flags and
 outputs. Behavioral reference: ngs-bits src/SeqPurge/main.cpp:17-104 and
 ThreadCoordinator.cpp (read -> analyze -> write). Here the two mates decode
-on two prefetch threads, one consumer runs the engine (scans on the device
-that ``NGSBITS_TORCH_DEVICE`` names, decisions on the host), and each output
+on two prefetch threads, one consumer runs the engine (scans and per-pair
+decisions on the device that ``NGSBITS_TORCH_DEVICE`` names), and each output
 stream compresses on its own writer thread. ``-threads`` is accepted and
 changes no output: there is one consumer, which feeds the device.
 """

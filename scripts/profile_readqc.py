@@ -26,6 +26,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import inspect
+import json
 import shutil
 import subprocess
 import sys
@@ -101,10 +102,24 @@ def _readqc(args: list[str], dev: torch.device) -> float:
     return time.perf_counter() - t0
 
 
-def trace(args: list[str], dev: torch.device, top: int = 10, run=None) -> dict:
+def copies(chrome: Path) -> dict:
+    """Count and bytes of each kind of memory copy in an exported trace
+    (kineto's ``gpu_memcpy`` events carry their bytes)."""
+    kinds: dict = defaultdict(lambda: [0, 0])
+    for e in json.loads(chrome.read_text()).get("traceEvents", []):
+        if e.get("cat") == "gpu_memcpy":
+            kinds[e["name"]][0] += 1
+            kinds[e["name"]][1] += int(e.get("args", {}).get("bytes", 0))
+    return dict(kinds)
+
+
+def trace(args: list[str], dev: torch.device, top: int = 10, run=None,
+          chrome: Path | None = None) -> dict:
     """One tool run (``run(args, dev)`` returning its wall seconds; ReadQC by
     default) under torch.profiler; prints device time per name and returns
-    the wall seconds, device busy milliseconds and busy share."""
+    the wall seconds, device busy milliseconds and busy share. With
+    ``chrome`` on a card the trace is also written there, and the count and
+    bytes of each kind of copy are printed and returned under ``copies``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -129,7 +144,13 @@ def trace(args: list[str], dev: torch.device, top: int = 10, run=None) -> dict:
         raise RuntimeError("the trace holds no device activity")
     share = busy_us / 1e6 / wall
     print(f"device busy {busy_us / 1000:.3f} ms = {100 * share:.3f}% of the wall")
-    return {"wall_s": wall, "busy_ms": busy_us / 1000, "busy_share": share}
+    result = {"wall_s": wall, "busy_ms": busy_us / 1000, "busy_share": share}
+    if chrome is not None:
+        prof.export_chrome_trace(str(chrome))
+        result["copies"] = copies(chrome)
+        for name, (n, nbytes) in sorted(result["copies"].items()):
+            print(f"  copies {name}: {n}, {nbytes} bytes")
+    return result
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -9,16 +9,23 @@ Writes the seeded short-insert read pairs that chip_smoke.py drives
 build/profile_seqpurge/ and removes them at the end. Then:
 
 1. runs   the port's SeqPurge CLI (``-qc``, ``-summary``) --runs times, the
-          first a warm-up: wall, pairs/s and the engine's seconds by stage
-          (qc, prepare = pad + revcomp + upload, scans = device time of the
-          three scans on a card, fetch, decisions).
+          first a warm-up: wall, pairs/s, the consumer thread's seconds
+          (``process_batch``, waits for decoded batches, ``write_batch`` and
+          the writers' close; the rest is set-up and the reports) and the
+          engine's seconds by stage
+          (qc; prepare = copy into the pinned buffer, upload, reverse
+          complement; scans = device time of the three scans on a card;
+          fetch = the wait for the device and the copy back; decisions =
+          device time of seqpurge_decide plus the host's fold).
 2. trace  one more run under torch.profiler: device time and count per
-          kernel and copy, and the device busy share (the union of the
-          device's activity intervals over the run's wall time).
+          kernel and copy, the device busy share (the union of the
+          device's activity intervals over the run's wall time), and the
+          bytes of each kind of copy, in all and per batch of 10,000 pairs.
 3. host   the JAX package's SeqPurge on the same files in a subprocess
           (JAX_PLATFORMS=cpu; its default route, native C++ where its host
-          library builds), timed inside that process; the port's FASTQs,
-          summary and qcML must equal its outputs.
+          library builds and loads, which it prints), timed inside that
+          process; the port's FASTQs, summary and qcML must equal its
+          outputs.
 
 The device is the one NGSBITS_TORCH_DEVICE names (cuda by default). On the
 CPU the trace holds no device activity and the busy share is not measured.
@@ -27,12 +34,14 @@ CPU the trace holds no device activity and the busy share is not measured.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gzip
 import os
 import shutil
 import subprocess
 import sys
 import time
+from collections import defaultdict
 from pathlib import Path
 
 import torch
@@ -41,9 +50,15 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from profile_readqc import _sync, trace  # noqa: E402  (sibling script)
 
+BATCH = 10000   # SeqPurge's default -block_size
+
 # The JAX package's SeqPurge, timed inside its own process so that the
 # interpreter's start is left out, as it is for the port.
+# It prints whether its native C++ route is available (else it runs its numpy
+# route), then its seconds.
 _REF_RUN = ("import sys, time; from ngsbits_tpu.__main__ import main; "
+            "from ngsbits_tpu.qc.seqpurge import SeqPurgeEngine; "
+            "print(SeqPurgeEngine.native_available()); "
             "t0 = time.perf_counter(); rc = main(sys.argv[1:]); "
             "print(time.perf_counter() - t0); sys.exit(rc)")
 
@@ -53,6 +68,54 @@ def _args(d: Path, f1: Path, f2: Path) -> list[str]:
     return ["SeqPurge", "-in1", str(f1), "-in2", str(f2),
             "-out1", str(d / "out1.fastq.gz"), "-out2", str(d / "out2.fastq.gz"),
             "-qc", str(d / "qc.qcML"), "-summary", str(d / "summary.txt")]
+
+
+@contextlib.contextmanager
+def consumer_timers(seconds: dict):
+    """Host seconds on SeqPurge's consumer thread, added into ``seconds``:
+    ``process_batch``, ``decode wait`` (waiting for the next pair of decoded
+    batches), ``write_batch`` (blocks while a writer's queue is full) and
+    ``writers' close`` (the writers' backlog at the end)."""
+    from ngsbits_tpu_torch.io.fastq import FastqWriter
+    from ngsbits_tpu_torch.qc.seqpurge import SeqPurgeEngine
+    from ngsbits_tpu_torch.tools import seq_purge
+
+    def timed(key, fn):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                seconds[key] += time.perf_counter() - t0
+        return wrapper
+
+    prefetch_paired = seq_purge.prefetch_paired
+
+    def timed_pairs(*args, **kw):
+        it = prefetch_paired(*args, **kw)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                item = next(it, None)
+                seconds["decode wait"] += time.perf_counter() - t0
+                if item is None:
+                    return
+                yield item
+        finally:
+            it.close()
+
+    saved = [(SeqPurgeEngine, "process_batch"), (FastqWriter, "write_batch"),
+             (FastqWriter, "close"), (seq_purge, "prefetch_paired")]
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr in saved]
+    SeqPurgeEngine.process_batch = timed("process_batch", SeqPurgeEngine.process_batch)
+    FastqWriter.write_batch = timed("write_batch", FastqWriter.write_batch)
+    FastqWriter.close = timed("writers' close", FastqWriter.close)
+    seq_purge.prefetch_paired = timed_pairs
+    try:
+        yield
+    finally:
+        for owner, attr, old in saved:
+            setattr(owner, attr, old)
 
 
 def _seqpurge(args: list[str], dev: torch.device):
@@ -107,11 +170,22 @@ def main(argv: list[str] | None = None) -> int:
 
         args = _args(opts.work / "port", f1, f2)
         for i in range(opts.runs):
-            wall, seconds = _seqpurge(args, dev)
+            consumer: dict = defaultdict(float)
+            with consumer_timers(consumer):
+                wall, seconds = _seqpurge(args, dev)
             print(f"run {i}: wall {wall:.3f} s, {opts.pairs / wall:.0f} pairs/s; "
                   "seconds by stage: "
                   + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()))
-        trace(args, dev, run=lambda a, d: _seqpurge(a, d)[0], top=12)
+            rest = wall - sum(consumer.values())
+            print("  consumer thread: "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in consumer.items())
+                  + f", rest {rest:.3f} s")
+        traced = trace(args, dev, run=lambda a, d: _seqpurge(a, d)[0], top=14,
+                       chrome=opts.work / "trace.json" if dev.type == "cuda" else None)
+        batches = -(-opts.pairs // BATCH)
+        for name, (n, nbytes) in sorted(traced.get("copies", {}).items()):
+            print(f"{name}: {nbytes / batches:.0f} bytes per batch in {n / batches:.2f} "
+                  f"copies ({batches} batches)")
 
         ref_args = _args(opts.work / "ref", f1, f2)
         res = subprocess.run([sys.executable, "-c", _REF_RUN, *ref_args], cwd=ROOT,
@@ -120,10 +194,12 @@ def main(argv: list[str] | None = None) -> int:
         if res.returncode != 0:
             raise RuntimeError(f"the JAX package's SeqPurge exited "
                                f"{res.returncode}:\n{res.stderr}")
-        ref_s = float(res.stdout.strip().splitlines()[-1])
+        *_, native, ref_s = res.stdout.strip().splitlines()
+        ref_s = float(ref_s)
         _same(opts.work / "port", opts.work / "ref")
-        print(f"JAX package host route: {ref_s:.3f} s, {opts.pairs / ref_s:.0f} "
-              "pairs/s; outputs identical to the port's")
+        route = "native C++" if native == "True" else "numpy (no native library)"
+        print(f"JAX package host route ({route}): {ref_s:.3f} s, "
+              f"{opts.pairs / ref_s:.0f} pairs/s; outputs identical to the port's")
     finally:
         shutil.rmtree(opts.work, ignore_errors=True)
     return 0

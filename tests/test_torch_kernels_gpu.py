@@ -6,8 +6,10 @@ quality profile and random bytes past the reads, SeqPurge's scans at theirs (B=1
 pairs, L=151) and at a ragged shape (B=1237, L=250), with adapters with and
 without N and adapter prefixes of 15 and 20 bases, and the adapter scans at
 the edges of their design (L from 1 to 1000, windows of 1 to 64 bases, random
-bytes past the reads, all-N pairs). Integer outputs: the
-tolerance is exact equality. Skips where no CUDA device is available."""
+bytes past the reads, all-N pairs), and SeqPurge's decisions at the
+main path's batch, ragged rows, single pairs and rows of 999 bases, with and
+without -ec. Integer outputs: the tolerance is exact equality. Skips where
+no CUDA device is available."""
 
 import pytest
 import torch
@@ -198,6 +200,49 @@ def test_adapter_scans_refuse_rows_wider_than_shared_memory_takes():
     with pytest.raises(ValueError, match="exceeds"):
         sp.adapter_scan_into(read, n, A1[:20], *out[:2])
     assert [k.launches for k in (sp.adapter_evidence_into, sp.adapter_scan_into)] == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dirty", [False, True])
+@pytest.mark.parametrize("ec", [False, True])
+@pytest.mark.parametrize("B,L,adapters", [
+    (10000, 151, "default"), (1237, 250, "default"), (1237, 250, "with_n"),
+    (1, 151, "default"), (33, 151, "with_n"), (1, 999, "default"),
+    (33, 999, "default"), (500, 999, "with_n")])
+def test_seqpurge_decide_matches_plain_version(B, L, adapters, ec, dirty):
+    """The decisions' kernel on the scans of a short-insert library with
+    adapters (ties in p at 0.0 on the long rows, errors for -ec, N runs,
+    low-quality tails, random bytes past the reads with ``dirty``): per-pair
+    results, accumulators and corrected reads equal the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    case = selfcheck.decide_case(B, L, torch.device("cuda"), *ADAPTERS[adapters],
+                                 ec=ec, seed=B + L, dirty=dirty)
+    before = case.wrapper.launches
+    case.kernel()
+    case.plain()
+    torch.cuda.synchronize()
+    assert case.wrapper.launches == before + 1
+    assert selfcheck.max_abs_err(case) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ec", [False, True])
+def test_seqpurge_decide_breaks_ties_as_the_plain_version(ec):
+    """Pairs whose best insert p-value is reached at several offsets (ties
+    at 0.0 that span lanes of a warp on rows of 700 bases): the kernel
+    picks the smallest offset, as the plain version does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    *pairs, quals = selfcheck.tie_pairs(720, seed=7)
+    case = selfcheck.decide_case_for(*pairs, quals, torch.device("cuda"),
+                                     *selfcheck.POLY, ec=ec)
+    case.kernel()
+    case.plain()
+    torch.cuda.synchronize()
+    assert selfcheck.max_abs_err(case) == 0
+    best = case.outputs()[0][0][0]
+    assert (best[:8] == 5).all() and (best[8:] > 32).all()
 
 
 @pytest.mark.gpu
