@@ -19,7 +19,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
             SeqPurge's three scans at their main path's batch (B=10000 pairs,
             L=151) and at a ragged B=1237, L=250, with adapters with and
             without N and adapter prefixes of 15 and 20 bases (off the main
-            batch: random bytes past the reads and all-N pairs); its
+            batch: random bytes past the reads and all-N pairs); K2 also on
+            wide rows at the edges of its contract (B=1000, L=1000 and B=3,
+            L=24,576: min_len below 0 and above L, bytes outside ACGTN,
+            all-N pairs, random bytes past min_len); its
             decisions (``seqpurge_decide``) on the scans of a library with
             adapters at the main batch, with and without -ec, and at B=1237,
             L=250 (per-pair results, accumulators and corrected reads
@@ -27,8 +30,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
             call (``ops/selfcheck.py``): ``ms`` device time (10 calls captured
             in a CUDA graph, replays between CUDA events, median of 5,
             L2-warm); ``call_ms`` the same 10 calls made from Python (the
-            wrapper's host work included); ``cold_ms`` (K1, the three scans
-            and the decisions, at their main inputs) one call after a 128 MB overwrite
+            wrapper's host work included); ``cold_ms`` (every kernel at its
+            main input) one call after a 128 MB overwrite
             and read, median of 20, and the share of the bound against it;
             ``plain_ms`` as ``call_ms``.
             ``--phase kernels`` stops here.
@@ -54,8 +57,9 @@ against the JAX package. This script imports only torch, numpy, the stdlib and
 ngsbits_tpu_torch. Before its last line it prints one JSON line with the
 kernels' records (the times at each kernel's main shape, and K1's at each
 input under ``inputs``; ``bound_ms`` is the larger of bytes over 3.35 TB/s and
-integer operations over 16.7 T/s, K1's bytes those inside the reads, the
-decisions' the counts and bases that their inputs need them to read).
+integer operations over 16.7 T/s, K1's bytes those inside the reads, K2's
+operations its compares four to a 32-bit operation, the decisions' bytes
+the counts and bases that their inputs need them to read).
 The last line is {"ok": true, "device": {...}}. Data is written under
 build/chip_smoke/ and removed at the end.
 """
@@ -219,7 +223,8 @@ def _record(records: dict, case, label: str, main_shape: bool,
 def kernels(dev: torch.device) -> dict:
     """Every kernel against its plain version; device, per-call and plain
     times. K1 at each of ``K1_INPUTS`` (warm and cold); unpack and tails at
-    the first."""
+    the first (warm and cold); the scans and the decisions warm and cold at
+    their main inputs, K2 also at its edges."""
     from ngsbits_tpu_torch.ops import selfcheck
     records: dict = {}
     phase("kernels: ReadQC")
@@ -230,12 +235,13 @@ def kernels(dev: torch.device) -> dict:
             if case.name == "readqc_batch":
                 k1.append(_record(records, case, label, i == 0, cold=True))
             elif i == 0:
-                _record(records, case, label, True)
+                _record(records, case, label, True, cold=True)
             else:
                 _check_equal(case, label)
     records["readqc_batch"]["inputs"] = k1
     phase("kernels: SeqPurge at B=10000, L=151 and B=1237, L=250 (random bytes "
-          "past the reads, all-N pairs)")
+          "past the reads, all-N pairs); K2 at B=1000, L=1000 and B=3, L=24576 "
+          "(its edges)")
     for (B, L) in ((10000, 151), (1237, 250)):
         for name, (a1, a2) in sorted(ADAPTERS.items()):
             for a_size in (20, 15):
@@ -244,6 +250,12 @@ def kernels(dev: torch.device) -> dict:
                                                      seed=B + a_size, dirty=not main):
                     _record(records, case, f"B={B} L={L} {name} a_size={a_size}", main,
                             cold=main)
+    for B, L in ((1000, 1000), (3, 24576)):
+        case = selfcheck.insert_case(*(torch.from_numpy(a).to(dev) for a in
+                                       selfcheck.insert_edge_pairs(B, L, seed=B + L)))
+        label = f"B={B} L={L} edges"
+        _check_equal(case, label)
+        print(f"{case.name:16s} {label}: equal", flush=True)
     phase("kernels: SeqPurge decisions at B=10000, L=151 (with and without -ec) and "
           "B=1237, L=250 (random bytes past the reads, all-N pairs)")
     for B, L, name, ec in ((SP_BATCH, READ_LEN, "default", False),

@@ -16,15 +16,20 @@
 //                     ngsbits_tpu/ops/seqpurge.py)
 //
 // A position is skipped when either side is 'N'. All outputs are [B, L]
-// int32 indexed by offset, written in full (zeros where nothing counts).
+// indexed by offset, written in full (zeros where nothing counts): int16
+// for K2 (counts of at most L <= 24,576), int32 for the adapter scans.
 //
-// K2 does B * n(n+1)/2 byte compares per batch for pairs of overlap n: it is
-// bound by integer operations, not bytes (each input byte is compared about
-// n/2 times). Its TPU kernel rolled a VMEM tile per offset and wrote
-// transposed [L, B] tiles to keep its stores lane-aligned; here one block
-// stages a pair's two rows in shared memory, one thread per offset walks
-// its diagonal, and the stores are coalesced along the offset axis with no
-// transpose and no padding of B or L.
+// K2 does B * n(n+1)/2 byte compares per batch for pairs of overlap n (each
+// input byte is compared about n/2 times). Its TPU kernel rolled a VMEM tile
+// per offset and wrote transposed [L, B] tiles to keep its stores
+// lane-aligned. Its first port here (one block per pair, one thread per
+// offset, a byte per compare, int32 stores) took about five instructions
+// and two shared loads per compare, left warps of short diagonals idle
+// beside long ones and retired a block after one pair. Now a block stages
+// a tile of pairs, compares four bytes per 32-bit operation, gives each
+// thread eight offsets and their mirror (every thread walks as far), and
+// writes int16 counts by coalesced stores. It is still bound by integer
+// instructions, not bytes (see below).
 //
 // Each launcher takes raw pointers, sizes and the stream, and returns
 // cudaGetLastError() so the caller can raise on a refused launch.
@@ -39,43 +44,6 @@ namespace {
 
 constexpr int kN = 'N';
 constexpr int kMaxAdapter = 64;
-
-// ---------------------------------------------------------------------------
-// K2. Block = one pair. Shared memory holds the pair's seq1 and seq2rc rows
-// up to its overlap n = min(min_len, L). Thread t owns offsets t, t + blockDim,
-// ...; for offset o < n it walks j in [o, n): the lanes of a warp read
-// neighbouring bytes of seq1 and one broadcast byte of seq2rc per step.
-// ---------------------------------------------------------------------------
-
-__global__ void insert_scan_kernel(const uint8_t* __restrict__ seq1,
-                                   const uint8_t* __restrict__ seq2rc,
-                                   const int* __restrict__ min_len, int L,
-                                   int* __restrict__ matches,
-                                   int* __restrict__ mismatches) {
-    extern __shared__ uint8_t s_rows[];  // [2 * L]: seq1 row, then seq2rc row
-    uint8_t* s1 = s_rows;
-    uint8_t* s2 = s_rows + L;
-    const long long row = static_cast<long long>(blockIdx.x) * L;
-    int n = min_len[blockIdx.x];
-    n = n < 0 ? 0 : (n > L ? L : n);
-    for (int j = threadIdx.x; j < n; j += blockDim.x) {
-        s1[j] = seq1[row + j];
-        s2[j] = seq2rc[row + j];
-    }
-    __syncthreads();
-    for (int o = threadIdx.x; o < L; o += blockDim.x) {
-        int m = 0, t = 0;
-        for (int j = o; j < n; ++j) {
-            const int a = s1[j - o];
-            const int c = s2[j];
-            const int eff = (a != kN) & (c != kN);
-            t += eff;
-            m += eff & (a == c);
-        }
-        matches[row + o] = m;
-        mismatches[row + o] = t - m;
-    }
-}
 
 // ---------------------------------------------------------------------------
 // The adapter scans. For each (pair, offset) they compare a window of w
@@ -229,13 +197,26 @@ __device__ __forceinline__ int prefetch_rows(unsigned* raw, int* lens, const uin
     const int chunks = static_cast<int>((first + static_cast<uintptr_t>(rows) * L - a0 + 15) >> 4);
     for (int k = threadIdx.x; k < chunks; k += blockDim.x)
         cp_async16(raw + 4 + 4 * k, reinterpret_cast<const void*>(a0 + 16 * k));
-    for (int r = threadIdx.x; r < rows; r += blockDim.x) cp_async4(lens + r, len + b0 + r);
+    if (len)
+        for (int r = threadIdx.x; r < rows; r += blockDim.x) cp_async4(lens + r, len + b0 + r);
     return 16 + static_cast<int>(first - a0);
+}
+
+// Bytes p0 .. p0 + 3 of a read whose bytes start at byte `at` of raw, each
+// 'N' outside [0, len). Only a word with a byte inside the read touches raw.
+__device__ __forceinline__ unsigned staged_word(const unsigned* __restrict__ raw, int at, int len,
+                                                int p0) {
+    const int lo = clampi(-p0, 0, 4), hi = clampi(len - p0, 0, 4);  // bytes [lo, hi) inside
+    if (lo >= hi) return kNNNN;
+    const int g = at + p0;  // at least at - 3: inside the margin
+    const unsigned x = __funnelshift_r(raw[g >> 2], raw[(g >> 2) + 1], (g & 3) * 8);
+    const unsigned keep = (0xFFFFFFFFu << (8 * lo)) & (0xFFFFFFFFu >> (8 * (4 - hi)));
+    return (x & keep) | (kNNNN & ~keep);
 }
 
 // One warp builds a staged row from its read's bytes, which start at byte
 // `at` of raw: word c holds bytes 4c - pad .. 4c - pad + 3 of the read, each
-// 'N' outside [0, len). Only words with a byte inside the read touch raw.
+// 'N' outside [0, len).
 // With PREFIX it also writes pre: for each byte c of the row, 16 bits
 // counting the non-'N' bytes before it (a warp scan over the words).
 template <bool PREFIX>
@@ -245,15 +226,7 @@ __device__ __forceinline__ void stage_row(unsigned* __restrict__ dst, unsigned* 
     unsigned carry = 0;  // non-'N' bytes in the words of earlier passes
     for (int c0 = 0; c0 < s4; c0 += 32) {
         const int c = c0 + lane;
-        const int p0 = 4 * c - pad;
-        const int lo = clampi(-p0, 0, 4), hi = clampi(len - p0, 0, 4);  // bytes [lo, hi) inside
-        unsigned word = kNNNN;
-        if (c < s4 && lo < hi) {
-            const int g = at + p0;  // at least at - 3: inside the margin
-            const unsigned x = __funnelshift_r(raw[g >> 2], raw[(g >> 2) + 1], (g & 3) * 8);
-            const unsigned keep = (0xFFFFFFFFu << (8 * lo)) & (0xFFFFFFFFu >> (8 * (4 - hi)));
-            word = (x & keep) | (kNNNN & ~keep);
-        }
+        const unsigned word = c < s4 ? staged_word(raw, at, len, 4 * c - pad) : kNNNN;
         if (c < s4) dst[c] = word;
         if (PREFIX) {
             const unsigned f = nonzero_bytes(word ^ kNNNN) & 0x80808080u;
@@ -417,10 +390,216 @@ __global__ void __launch_bounds__(kScanThreads, 4) adapter_scan_kernel(
     }
 }
 
-// Rows per tile: about kTileItems items, under kTileSmem bytes of shared
-// memory where one row allows it.
-int tile_rows(int L, int row_bytes) {
-    int r = kTileItems / L;
+// ---------------------------------------------------------------------------
+// K2, insert_scan. For pair b, n = clamp(min_len[b], 0, L); offset o < n
+// compares seq1[i] with seq2rc[i + o] for i in [0, n - o).
+//
+// What bounds it: integer instructions, not bytes. Per word of seq1 a unit
+// runs about 30 logic, shift and add operations and 16 __dp4a for 32
+// compares; at the main path's batch that loop takes about two thirds of
+// the time, and the tile's copy in and its counts' copy out, which every
+// block does in step with the others, most of the rest.
+//
+// A block owns a tile of R pairs (about kInsertThreads units, below). The
+// rows' bytes come in by 16-byte cp.async and are staged once per row as
+// (word, flags): bytes 4c .. 4c + 3 and 0x80 in each byte that is not 'N',
+// with 'N' at every position at or past n, so that no loop tests a bound.
+//
+// One 32-bit operation compares four positions. For seq1's word k (one
+// broadcast load for the lanes of a pair) and the window of seq2rc at byte
+// 4k + o, a funnel shift of two aligned words:
+//   matched: no bit of seq1 ^ window is set in the byte (the in-byte carry
+//            of nonzero_bytes) and seq1's byte is not 'N' (its flag),
+//            summed by __dp4a (128 per match);
+//   counted: __dp4a of the two flag words (128 * 128 per position where
+//            neither byte is 'N'), with no mask;
+// mismatches are the counted positions less the matched ones.
+//
+// A unit is a pair and a pair of groups of four offsets, 8p .. 8p + 7: the
+// windows of offset 8p + 4 + s at word k are those of 8p + s at word k + 1,
+// so each window is shifted once and compared twice. Group pair p walks
+// ceil(n/4) - 2p words. The triangle is folded: a unit takes group pair u
+// and its mirror P - 1 - u (P = ceil(ceil(n/4) / 2)), about ceil(n/4) + 2
+// words in all, so the units of a pair walk as far as each other. Offsets
+// in [8P, L) are written 0 by the units in turn. Per word: two 8-byte
+// shared loads, six funnel shifts, and per offset three or four logic and
+// add operations and two __dp4a (three for rows whose bytes are all below
+// 128, which real reads are; four, exact for every byte value, otherwise).
+// The counts go to a shared tile, 16 bytes per group pair, and the tile
+// leaves as one contiguous span of each output.
+// ---------------------------------------------------------------------------
+
+using Count = int16_t;                // K2's outputs
+constexpr int kInsertThreads = 128;   // threads of a K2 block: one unit each per tile
+
+// One warp stages a row of n bytes (at byte `at` of raw) as W (word, flags).
+// Returns whether a byte of the row has bit 7 set.
+__device__ __forceinline__ bool stage_flagged(uint2* __restrict__ dst,
+                                              const unsigned* __restrict__ raw, int at, int n,
+                                              int W, int lane) {
+    unsigned high = 0;
+    for (int c = lane; c < W; c += 32) {
+        const unsigned w = staged_word(raw, at, n, 4 * c);
+        dst[c] = make_uint2(w, nonzero_bytes(w ^ kNNNN) & 0x80808080u);
+        high |= w;
+    }
+    return __any_sync(0xFFFFFFFFu, high & 0x80808080u);
+}
+
+// Adds seq1's word x (flags xf) against a window w (flags f) of seq2rc.
+// With SEVEN (no byte of either row has bit 7 set) the bytes of x ^ w are
+// below 128, so adding 0x7F to each sets its bit 7 exactly where it is not
+// 0 and never carries out of it: one operation less than nonzero_bytes.
+template <bool SEVEN>
+__device__ __forceinline__ void count_word(unsigned x, unsigned xf, unsigned w, unsigned f,
+                                           unsigned& m, unsigned& t) {
+    const unsigned d = x ^ w;
+    const unsigned differ = SEVEN ? d + 0x7F7F7F7Fu : nonzero_bytes(d);
+    m = __dp4a(~differ & xf, 0x01010101u, m);
+    t = __dp4a(xf, f, t);
+}
+
+// Eight counts at dst, 16-byte aligned in shared memory.
+__device__ __forceinline__ void store8(Count* dst, const unsigned (&v)[8]) {
+    if constexpr (sizeof(Count) == 2) {
+        *reinterpret_cast<uint4*>(dst) = make_uint4(v[0] | v[1] << 16, v[2] | v[3] << 16,
+                                                    v[4] | v[5] << 16, v[6] | v[7] << 16);
+    } else {
+        reinterpret_cast<uint4*>(dst)[0] = make_uint4(v[0], v[1], v[2], v[3]);
+        reinterpret_cast<uint4*>(dst)[1] = make_uint4(v[4], v[5], v[6], v[7]);
+    }
+}
+
+// Matches and mismatches of offsets 8p .. 8p + 7 over `words` words of a
+// pair's staged seq1 (a) and seq2rc (c), into its rows of counts.
+template <bool SEVEN>
+__device__ __forceinline__ void insert_pair(const uint2* __restrict__ a,
+                                            const uint2* __restrict__ c, int p, int words,
+                                            Count* __restrict__ m_row,
+                                            Count* __restrict__ mm_row) {
+    unsigned m[8] = {0, 0, 0, 0, 0, 0, 0, 0};  // 128 per match
+    unsigned t[8] = {0, 0, 0, 0, 0, 0, 0, 0};  // 128 * 128 per counted position
+    const int g = 2 * p;
+    uint2 mid = c[g + 1];
+    unsigned w0[4], f0[4];  // windows of offsets 4g + s at word k: bytes 4(k + g) + s
+    {
+        const uint2 lo = c[g];
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+            w0[s] = __funnelshift_r(lo.x, mid.x, 8 * s);
+            f0[s] = __funnelshift_r(lo.y, mid.y, 8 * s);
+        }
+    }
+    for (int k = 0; k < words; ++k) {
+        const uint2 x = a[k];
+        const uint2 hi = c[g + k + 2];
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+            const unsigned w1 = s ? __funnelshift_r(mid.x, hi.x, 8 * s) : mid.x;  // offset 4g + 4 + s
+            const unsigned f1 = s ? __funnelshift_r(mid.y, hi.y, 8 * s) : mid.y;
+            count_word<SEVEN>(x.x, x.y, w0[s], f0[s], m[s], t[s]);
+            count_word<SEVEN>(x.x, x.y, w1, f1, m[4 + s], t[4 + s]);
+            w0[s] = w1;
+            f0[s] = f1;
+        }
+        mid = hi;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        m[j] >>= 7;
+        t[j] = (t[j] >> 14) - m[j];
+    }
+    store8(m_row + 8 * p, m);
+    store8(mm_row + 8 * p, t);
+}
+
+// A unit: group pair u of a pair with G groups below n (P pairs of groups),
+// and its mirror P - 1 - u.
+template <bool SEVEN>
+__device__ __forceinline__ void insert_unit(const uint2* __restrict__ a,
+                                            const uint2* __restrict__ c, int u, int G, int P,
+                                            Count* __restrict__ m_row,
+                                            Count* __restrict__ mm_row) {
+    insert_pair<SEVEN>(a, c, u, G - 2 * u, m_row, mm_row);
+    const int v = P - 1 - u;
+    if (v > u) insert_pair<SEVEN>(a, c, v, G - 2 * v, m_row, mm_row);
+}
+
+// Per tile: the rows' bytes are copied into shared memory, staged, and
+// counted into a shared tile of counts ([2][R][Lp], over the copies' space);
+// the tile's counts are one span of each output, written by coalesced stores.
+// At the main path's batch a block counts one tile.
+__global__ void __launch_bounds__(kInsertThreads) insert_scan_kernel(
+    const uint8_t* __restrict__ seq1, const uint8_t* __restrict__ seq2rc,
+    const int* __restrict__ min_len, int B, int L, int R, int U, int W, int rw, int io,
+    Count* __restrict__ matches, Count* __restrict__ mismatches) {
+    extern __shared__ __align__(16) unsigned smem[];
+    unsigned* raw1 = smem;                            // rw words each: the tile as copied,
+    unsigned* raw2 = raw1 + rw;
+    Count* counts = reinterpret_cast<Count*>(smem);   // then its counts (io words in all)
+    uint2* s1 = reinterpret_cast<uint2*>(smem + io);  // R staged rows of seq1, then of seq2rc
+    uint2* s2 = s1 + R * W;
+    int* lens = reinterpret_cast<int*>(s2 + R * W);   // min_len as copied
+    int* ns = lens + R;                               // 2n of each row, + 1 if a byte has bit 7
+    const int Lp = (L + 7) & ~7;                      // a row of counts: group pair p at 8p
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+    const int r0 = threadIdx.x / U, u0 = threadIdx.x % U;
+    const int dr = blockDim.x / U, du = blockDim.x % U;
+    const unsigned zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    for (long long b0 = static_cast<long long>(blockIdx.x) * R; b0 < B;
+         b0 += static_cast<long long>(gridDim.x) * R) {
+        const int rows = static_cast<int>(min(static_cast<long long>(R), B - b0));
+        const int off1 = prefetch_rows(raw1, lens, seq1, min_len, b0, rows, L);
+        const int off2 = prefetch_rows(raw2, nullptr, seq2rc, nullptr, b0, rows, L);
+        cp_async_wait_all();
+        __syncthreads();  // the tile's bytes have landed
+        for (int r = warp; r < rows; r += warps) {
+            const int n = clampi(lens[r], 0, L);
+            const bool high = stage_flagged(s1 + r * W, raw1, off1 + r * L, n, W, lane) |
+                              stage_flagged(s2 + r * W, raw2, off2 + r * L, n, W, lane);
+            if (lane == 0) ns[r] = 2 * n + high;
+        }
+        __syncthreads();  // staged: the copies' space takes the counts
+        int r = r0, u = u0;
+        for (int idx = threadIdx.x; idx < rows * U; idx += blockDim.x) {
+            const int G = ((ns[r] >> 1) + 3) >> 2;  // groups of four offsets below n
+            const int P = (G + 1) >> 1;             // pairs of groups
+            const uint2* a = s1 + r * W;
+            const uint2* c = s2 + r * W;
+            Count* m_row = counts + r * Lp;
+            Count* mm_row = counts + (R + r) * Lp;
+            if (2 * u < P) {
+                if (ns[r] & 1)
+                    insert_unit<false>(a, c, u, G, P, m_row, mm_row);
+                else
+                    insert_unit<true>(a, c, u, G, P, m_row, mm_row);
+            }
+            for (int q = P + u; 8 * q < L; q += U) {  // past the pair's overlap
+                store8(m_row + 8 * q, zero);
+                store8(mm_row + 8 * q, zero);
+            }
+            u += du;
+            r += dr;
+            if (u >= U) {
+                u -= U;
+                ++r;
+            }
+        }
+        __syncthreads();  // counted
+        const size_t out0 = static_cast<size_t>(b0) * L;
+        for (int r = warp; r < rows; r += warps)
+            for (int o = lane; o < L; o += 32) {
+                matches[out0 + r * L + o] = counts[r * Lp + o];
+                mismatches[out0 + r * L + o] = counts[(R + r) * Lp + o];
+            }
+        __syncthreads();  // written: the next tile's copies may land
+    }
+}
+
+// Rows per tile: about `aim` items of `per_row` each, under kTileSmem bytes
+// of shared memory where one row allows it.
+int tile_rows(int per_row, int aim, int row_bytes) {
+    int r = aim / per_row;
     if (r > kTileSmem / row_bytes) r = kTileSmem / row_bytes;
     return r < 1 ? 1 : r;
 }
@@ -442,16 +621,24 @@ int scan_grid(Kernel kernel, int B, int R, size_t smem, int* grid) {
 
 extern "C" {
 
-// B >= 1, 1 <= L <= 24576 (2 * L bytes of shared memory); the wrapper checks.
+// B >= 1, 1 <= L <= 24576 (about 8 L bytes of shared memory for one row);
+// matches, mismatches: [B, L] int16. The wrapper checks.
 int ngs_insert_scan(const void* seq1, const void* seq2rc, const void* min_len,
                     int B, int L, void* matches, void* mismatches, void* stream) {
-    // one warp per 32 offsets, up to 256 threads; longer rows loop
-    int threads = ((L + 31) / 32) * 32;
-    if (threads > 256) threads = 256;
-    insert_scan_kernel<<<B, threads, 2 * L, static_cast<cudaStream_t>(stream)>>>(
+    const int W = (L + 3) / 4 + 2;   // staged words per row: the windows read two past ceil(L/4)
+    const int U = (L + 15) / 16;     // units per pair: ceil(L/8) group pairs, folded in two
+    const int Lp = (L + 7) / 8 * 8;  // a row of counts in shared memory
+    const int R = tile_rows(U, kInsertThreads, 4 * L + 16 * W + 48);
+    const int rw = raw_words(R, L);
+    const int count_words = static_cast<int>(2 * R * Lp * sizeof(Count) / 4);
+    const int io = 2 * rw > count_words ? 2 * rw : count_words;  // a multiple of 4
+    const size_t smem = (static_cast<size_t>(io) + 4 * static_cast<size_t>(R) * W + 2 * R) * 4;
+    int grid = 0;
+    if (const int err = scan_grid(insert_scan_kernel, B, R, smem, &grid)) return err;
+    insert_scan_kernel<<<grid, kInsertThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(seq1), static_cast<const uint8_t*>(seq2rc),
-        static_cast<const int*>(min_len), L, static_cast<int*>(matches),
-        static_cast<int*>(mismatches));
+        static_cast<const int*>(min_len), B, L, R, U, W, rw, io, static_cast<Count*>(matches),
+        static_cast<Count*>(mismatches));
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -462,7 +649,7 @@ int ngs_adapter_evidence(const void* read1, const void* read2, const void* len1,
                          void* mm2, void* stream) {
     const Window w1 = make_window(a1, n1), w2 = make_window(a2, n2);
     const int s4 = staged_words(L, w1.nw, 4 * w1.nw);
-    const int R = tile_rows(L, 2 * (4 * s4 + L) + 12);
+    const int R = tile_rows(L, kTileItems, 2 * (4 * s4 + L) + 12);
     const int rw = raw_words(R, L);
     const size_t smem = (2 * static_cast<size_t>(rw) + 2 * static_cast<size_t>(R) * s4 + 3 * R) * 4;
     // the main path's windows (9 to 12 bases), else the run-time word count
@@ -486,7 +673,7 @@ int ngs_adapter_scan(const void* read, const void* length, int B, int L,
     // the main path's prefixes (17 to 20 bases, no 'N'), else the general kernel
     const bool fast = ad.nw == 5 && all_count(ad);
     const int words = fast ? 3 * s4 : s4;  // staged row and prefix counts
-    const int R = tile_rows(L, 4 * words + L + 4);
+    const int R = tile_rows(L, kTileItems, 4 * words + L + 4);
     const int rw = raw_words(R, L);
     const size_t smem = (static_cast<size_t>(rw) + static_cast<size_t>(R) * words + R) * 4;
     auto kernel = fast ? adapter_scan_kernel<5, true> : adapter_scan_kernel<0, false>;

@@ -33,10 +33,10 @@
 // can change a decision. The table is the host's, looked up, never
 // recomputed.
 //
-// It is bound by bytes: per pair it reads the insert counts up to the
-// overlap, the adapter counts of pairs without an insert up to their first
-// hit, and the bases and qualities the trims look at, each once; its
-// operations are a few per byte. A warp per pair keeps every read of a
+// It is bound by bytes: per pair it reads the insert counts (K2's, int16)
+// up to the overlap, the adapter counts of pairs without an insert up to
+// their first hit, and the bases and qualities the trims look at, each
+// once; its operations are a few per byte. A warp per pair keeps every read of a
 // count array coalesced along the offset axis.
 //
 // Bytes past a read's length are never read. The launcher returns
@@ -170,8 +170,8 @@ __device__ int trim_n(const uint8_t* __restrict__ bases, int count, int ncut,
 }
 
 __global__ void __launch_bounds__(kWarps * 32) seqpurge_decide_kernel(
-        const int* __restrict__ scans, uint8_t* bases, uint8_t* quals,
-        const int* __restrict__ lens, const double* __restrict__ table, int T,
+        const int* __restrict__ scans, const int16_t* __restrict__ ins,
+        uint8_t* bases, uint8_t* quals, const int* __restrict__ lens, const double* __restrict__ table, int T,
         int B, int L, Params p, int* __restrict__ out,
         unsigned long long* __restrict__ acc) {
     __shared__ int s_acc[kAccSize];
@@ -183,12 +183,12 @@ __global__ void __launch_bounds__(kWarps * 32) seqpurge_decide_kernel(
     for (int b = blockIdx.x * kWarps + (threadIdx.x >> 5); b < B;
          b += gridDim.x * kWarps) {
         const long long row = static_cast<long long>(b) * L;
-        const int* m_ins = scans + row;
-        const int* mm_ins = scans + BL + row;
-        const int* m1 = scans + 2 * BL + row;
-        const int* mm1 = scans + 3 * BL + row;
-        const int* m2 = scans + 4 * BL + row;
-        const int* mm2 = scans + 5 * BL + row;
+        const int16_t* m_ins = ins + row;
+        const int16_t* mm_ins = ins + BL + row;
+        const int* m1 = scans + row;
+        const int* mm1 = scans + BL + row;
+        const int* m2 = scans + 2 * BL + row;
+        const int* mm2 = scans + 3 * BL + row;
         uint8_t* s1 = bases + row;
         uint8_t* s2 = bases + BL + row;
         uint8_t* q1 = quals + row;
@@ -277,9 +277,9 @@ __global__ void __launch_bounds__(kWarps * 32) seqpurge_decide_kernel(
             }
         } else {
             // ---- 3. adapter match (AnalysisWorker.cpp:304-427) ----
-            const int off_f = first_hit(scans + 6 * BL + row, scans + 7 * BL + row,
+            const int off_f = first_hit(scans + 4 * BL + row, scans + 5 * BL + row,
                                         l1, table, T, p, lane);
-            const int off_r = first_hit(scans + 8 * BL + row, scans + 9 * BL + row,
+            const int off_r = first_hit(scans + 6 * BL + row, scans + 7 * BL + row,
                                         l2, table, T, p, lane);
             if (off_f != -1 || off_r != -1) {
                 new1 = min(new1, off_f != -1 ? off_f : off_r);
@@ -326,13 +326,14 @@ __global__ void __launch_bounds__(kWarps * 32) seqpurge_decide_kernel(
 
 extern "C" {
 
-// scans: [10, B, L] int32 (insert m, mm; evidence m1, mm1, m2, mm2; adapter
-// prefix counts of read 1 and read 2); bases, quals: [2, B, L] uint8 (read 1
-// then read 2, corrected in place with ec); lens: [2, B] int32 in [0, L];
+// scans: [8, B, L] int32 (evidence m1, mm1, m2, mm2; adapter prefix counts
+// of read 1 and read 2); ins: [2, B, L] int16 (K2's insert m, mm); bases,
+// quals: [2, B, L] uint8 (read 1 then read 2, corrected in place with ec);
+// lens: [2, B] int32 in [0, L];
 // table: [T, T] float64 with T >= L and T > the adapters' lengths;
 // out: [3, B] int32 (insert offset or -1, new len1, new len2), written;
 // acc: [acc_size] int64, added into. Returns 0 or the CUDA error.
-int ngs_seqpurge_decide(const void* scans, void* bases, void* quals,
+int ngs_seqpurge_decide(const void* scans, const void* ins, void* bases, void* quals,
                         const void* lens, const void* table, int T, int B, int L,
                         double match_perc, double mep, int qcut, int qwin,
                         int qoff, int ncut, int ec, void* out, void* acc,
@@ -345,8 +346,9 @@ int ngs_seqpurge_decide(const void* scans, void* bases, void* quals,
     if (blocks > cap) blocks = cap;
     seqpurge_decide_kernel<<<static_cast<int>(blocks), kWarps * 32, 0,
                              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(scans), static_cast<uint8_t*>(bases),
-        static_cast<uint8_t*>(quals), static_cast<const int*>(lens),
+        static_cast<const int*>(scans), static_cast<const int16_t*>(ins),
+        static_cast<uint8_t*>(bases), static_cast<uint8_t*>(quals),
+        static_cast<const int*>(lens),
         static_cast<const double*>(table), T, B, L, p, static_cast<int*>(out),
         static_cast<unsigned long long*>(acc));
     return static_cast<int>(cudaGetLastError());

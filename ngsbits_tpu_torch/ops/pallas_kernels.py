@@ -10,7 +10,7 @@ its kernel launches in its ``launches`` attribute.
 
 The three ReadQC kernels add into caller-given int64 accumulators, so a
 stream of batches updates one set of tensors in place. K2 writes its outputs
-in full. The adapter scans and the decisions of SeqPurge live in
+in full, as int16. The adapter scans and the decisions of SeqPurge live in
 ``ops/seqpurge.py`` and share the checks here; ``ngsbits_tpu_torch.ops.KERNELS``
 lists all seven wrappers.
 """
@@ -265,13 +265,15 @@ readqc_tails_into.launches = 0
 # --------------------------------------------------------------------------
 
 N_CODE = ord("N")
-MAX_SCAN_WIDTH = 24576   # the scans stage rows of L bytes in shared memory (K2: two)
+MAX_SCAN_WIDTH = 24576   # the scans stage rows in shared memory (K2: about 8 L bytes a pair)
+INSERT_COUNT = torch.int16  # K2's counts: at most L <= MAX_SCAN_WIDTH
 
 
 def insert_scan_plain(seq1, seq2rc, min_len, matches, mismatches):
     """Plain PyTorch K2 in the shifted-slice form of ``insert_scan_host``
     (``ngsbits_tpu/ops/seqpurge.py``): one pass per offset over contiguous
-    ``[B, L - o]`` slices, no ``[B, O, L]`` gather."""
+    ``[B, L - o]`` slices, no ``[B, O, L]`` gather; writes the outputs'
+    dtype (int16 where the wrapper's)."""
     B, L = seq1.shape
     matches.zero_()
     mismatches.zero_()
@@ -283,18 +285,19 @@ def insert_scan_plain(seq1, seq2rc, min_len, matches, mismatches):
         w = L - o
         eff = ok1[:, :w] & ok2m[:, o:]
         m = (eff & (seq1[:, :w] == seq2rc[:, o:])).sum(dim=1, dtype=torch.int32)
-        matches[:, o] = m
-        mismatches[:, o] = eff.sum(dim=1, dtype=torch.int32) - m
+        matches[:, o] = m.to(matches.dtype)
+        mismatches[:, o] = (eff.sum(dim=1, dtype=torch.int32) - m).to(mismatches.dtype)
 
 
 def insert_scan_into(seq1: torch.Tensor, seq2rc: torch.Tensor,
                      min_len: torch.Tensor, matches: torch.Tensor,
                      mismatches: torch.Tensor) -> None:
     """K2, the counterpart of ``insert_scan_pallas``: for each pair b and
-    offset o < L, writes into ``matches``/``mismatches [B, L]`` (int32) the
-    matching and mismatching positions of ``seq1[b, j - o]`` against
-    ``seq2rc[b, j]`` over ``o <= j < min_len[b]``, skipping ``N`` on either
-    side; offsets at or past ``min_len`` get 0.
+    offset o < L, writes into ``matches``/``mismatches [B, L]`` (int16:
+    counts are at most L) the matching and mismatching positions of
+    ``seq1[b, j - o]`` against ``seq2rc[b, j]`` over ``o <= j < n``, where
+    ``n = clamp(min_len[b], 0, L)``, skipping ``N`` on either side; offsets
+    at or past ``n`` get 0.
 
     ``seq1``/``seq2rc`` are ``[B, L]`` uint8 ASCII (zero-padded),
     ``min_len`` ``[B]`` int32."""
@@ -306,8 +309,8 @@ def insert_scan_into(seq1: torch.Tensor, seq2rc: torch.Tensor,
     _check("seq1", seq1, torch.uint8, (B, L))
     _check("seq2rc", seq2rc, torch.uint8, (B, L))
     _check("min_len", min_len, torch.int32, (B,))
-    _check("matches", matches, torch.int32, (B, L))
-    _check("mismatches", mismatches, torch.int32, (B, L))
+    _check("matches", matches, INSERT_COUNT, (B, L))
+    _check("mismatches", mismatches, INSERT_COUNT, (B, L))
     if B == 0 or L == 0:
         return
     rc = _lib().ngs_insert_scan(_ptr(seq1), _ptr(seq2rc), _ptr(min_len), B, L,

@@ -9,13 +9,15 @@ with qualities). All come from a numpy seed and return one ``Case`` per
 kernel: ``kernel()`` runs the wrapper, ``plain()`` the plain torch version,
 each into its own outputs.
 ``batch_case`` makes K1's case for any ``[B, L]``, and ``reads`` takes quality
-profiles, fixed read lengths and bytes past the lengths that are not zero.
+profiles, fixed read lengths and bytes past the lengths that are not zero;
+``insert_case`` makes K2's for any rows, and ``insert_edge_pairs`` rows at
+the edges of its contract.
 ``max_abs_err`` compares the two after both ran once. Each case also counts
 the work the function must do on its inputs: ``bytes`` (each input read once,
 each output written once; for K1 only the bytes inside the reads) and ``ops``
 (integer operations: compares and additions; for the scans, the compares
-that these inputs need). ``device_ms``, ``cold_ms`` and ``call_ms`` time a
-call on the card. ``chip_smoke.py``, ``scripts/k1_variants.py`` and the
+that these inputs need, K2's four to an operation). ``device_ms``,
+``cold_ms`` and ``call_ms`` time a call on the card. ``chip_smoke.py``, ``scripts/k1_variants.py`` and the
 ``gpu``-marked tests use them.
 """
 
@@ -218,14 +220,6 @@ def seqpurge_cases(B: int, L: int, device: torch.device, a1: bytes, a2: bytes,
         return [torch.empty((B, L), dtype=torch.int32, device=device)
                 for _ in range(n)]
 
-    n = min_len.clamp(0, L).to(torch.int64)
-    ik, ip = out(2), out(2)
-    insert = Case("insert_scan", pk.insert_scan_into,
-                  lambda: pk.insert_scan_into(read1, seq2rc, min_len, *ik),
-                  lambda: pk.insert_scan_plain(read1, seq2rc, min_len, *ip),
-                  lambda: (ik, ip),
-                  bytes=2 * B * L + 4 * B + 8 * B * L,
-                  ops=int((n * (n + 1) // 2).sum()))
     ek, ep = out(4), out(4)
     evidence = Case("adapter_evidence", sp.adapter_evidence_into,
                     lambda: sp.adapter_evidence_into(read1, read2, len1, len2,
@@ -241,7 +235,64 @@ def seqpurge_cases(B: int, L: int, device: torch.device, a1: bytes, a2: bytes,
                 lambda: sp.adapter_scan_plain(read1, len1, ad, *sq),
                 lambda: (sk, sq),
                 bytes=B * L + 4 * B + 8 * B * L, ops=len(ad) * B * L)
-    return [insert, evidence, scan]
+    return [insert_case(read1, seq2rc, min_len), evidence, scan]
+
+
+def insert_case(seq1: torch.Tensor, seq2rc: torch.Tensor,
+                min_len: torch.Tensor) -> Case:
+    """K2 on these ``[B, L]`` rows. Bytes: both rows, ``min_len`` and the
+    int16 outputs; operations: the ``n(n+1)/2`` compares of each pair of
+    overlap ``n = clamp(min_len, 0, L)``, four to a 32-bit operation."""
+    B, L = seq1.shape
+
+    def out():
+        return [torch.empty((B, L), dtype=pk.INSERT_COUNT, device=seq1.device)
+                for _ in range(2)]
+
+    n = min_len.clamp(0, L).to(torch.int64)
+    ik, ip = out(), out()
+    return Case("insert_scan", pk.insert_scan_into,
+                lambda: pk.insert_scan_into(seq1, seq2rc, min_len, *ik),
+                lambda: pk.insert_scan_plain(seq1, seq2rc, min_len, *ip),
+                lambda: (ik, ip),
+                bytes=2 * B * L + 4 * B + 4 * B * L,
+                ops=-(-int((n * (n + 1) // 2).sum()) // 4))
+
+
+def insert_edge_pairs(B: int, L: int, seed: int = 0):
+    """Rows for K2 at the edges of its contract: ``seq1``, ``seq2rc``
+    (``[B, L]`` uint8) and ``min_len`` (``[B]`` int32). Every fourth pair
+    overlaps (``seq2rc`` repeats ``seq1`` shifted by a random offset) and
+    every fifth is one base repeated, so counts run up to ``min_len``; the
+    bases are ACGTN with ~2% N, or any byte value in every third pair; three
+    pairs in seven are all N on one side or both; ``min_len`` is any of 0..L,
+    with some pairs at -1, 0, L and above L. Bytes past ``min_len`` are
+    random."""
+    rng = np.random.default_rng(seed)
+    seq1 = _ACGTN[rng.choice(5, size=(B, L), p=[0.245] * 4 + [0.02])]
+    seq2 = _ACGTN[rng.choice(5, size=(B, L), p=[0.245] * 4 + [0.02])]
+    wild = np.arange(B) % 3 == 1
+    seq1[wild] = rng.integers(0, 256, size=(int(wild.sum()), L))
+    seq2[wild] = rng.integers(0, 256, size=(int(wild.sum()), L))
+    shift = rng.integers(0, L, size=B)
+    pos = np.arange(L)[None, :]
+    overlap = (np.arange(B) % 4 == 0)[:, None] & (pos >= shift[:, None])
+    shifted = seq1[np.arange(B)[:, None], np.maximum(pos - shift[:, None], 0)]
+    seq2 = np.where(overlap, shifted, seq2)
+    same = np.arange(B) % 5 == 2
+    seq1[same] = ord("C")
+    seq2[same] = ord("C")
+    k = np.arange(B) % 7
+    seq1[(k == 3) | (k == 5)] = ord("N")
+    seq2[(k == 4) | (k == 5)] = ord("N")
+    min_len = rng.integers(0, L + 1, size=B).astype(np.int64)
+    special = np.array([-1, 0, L, L + 1, L + 1000, 2**31 - 1])
+    pick = rng.random(B) < 0.3
+    min_len[pick] = special[rng.integers(0, len(special), size=int(pick.sum()))]
+    past = pos >= np.clip(min_len, 0, L)[:, None]
+    seq1 = np.where(past, rng.integers(0, 256, size=(B, L)), seq1).astype(np.uint8)
+    seq2 = np.where(past, rng.integers(0, 256, size=(B, L)), seq2).astype(np.uint8)
+    return seq1, seq2, min_len.astype(np.int32)
 
 
 def adapter_pairs(B: int, L: int, a1: bytes, a2: bytes, seed: int = 0,
@@ -312,16 +363,18 @@ def pair_quals(len1, len2, L: int, seed: int = 0, dirty: bool = False):
 
 def seqpurge_scans(read1, read2, seq2rc, len1, len2, min_len, a1: bytes,
                    a2: bytes, a_size: int = 20, overlap: int = 10):
-    """The engine's ten ``[B, L]`` int32 scan outputs for these tensors,
-    through the scans' wrappers (the kernels on a card)."""
+    """The engine's scan outputs for these tensors, through the scans'
+    wrappers (the kernels on a card): ``scans`` ``[8, B, L]`` int32 (the
+    adapter scans') and ``ins`` ``[2, B, L]`` int16 (K2's)."""
     B, L = read1.shape
+    ins = torch.empty((2, B, L), dtype=pk.INSERT_COUNT, device=read1.device)
     scans = torch.empty((sp.SCAN_ROWS, B, L), dtype=torch.int32, device=read1.device)
-    pk.insert_scan_into(read1, seq2rc, min_len, scans[0], scans[1])
+    pk.insert_scan_into(read1, seq2rc, min_len, ins[0], ins[1])
     sp.adapter_evidence_into(read1, read2, len1, len2, a1[:overlap], a2[:overlap],
-                             *scans[2:6])
-    sp.adapter_scan_into(read1, len1, a1[:a_size], scans[6], scans[7])
-    sp.adapter_scan_into(read2, len2, a2[:a_size], scans[8], scans[9])
-    return scans
+                             *scans[:4])
+    sp.adapter_scan_into(read1, len1, a1[:a_size], scans[4], scans[5])
+    sp.adapter_scan_into(read2, len2, a2[:a_size], scans[6], scans[7])
+    return scans, ins
 
 
 def tie_pairs(L: int, seed: int = 0):
@@ -389,15 +442,16 @@ def decide_case_for(read1, read2, seq2rc, len1, len2, min_len, quals,
     copy of the reads with ``ec``.
 
     Bytes: the counts the decisions must read (insert counts at offsets
-    1..min_len-1; adapter counts of pairs without an insert up to each
-    read's first hit, or its length), the bases of the final reads (the N
-    trim reads at least those), lengths, results and accumulators; a floor,
-    leaving out the evidence counts and table entries at the candidates and
-    the quality trim's reads. Operations: 4 per offset examined."""
+    1..min_len-1, two int16; adapter counts of pairs without an insert up to
+    each read's first hit, or its length, two int32), the bases of the final
+    reads (the N trim reads at least those), lengths, results and
+    accumulators; a floor, leaving out the evidence counts and table entries
+    at the candidates and the quality trim's reads. Operations: 4 per offset
+    examined."""
     from ..core.basicstats import match_probability_table
     B, L = read1.shape
     t = [torch.from_numpy(a).to(device) for a in (read1, read2, seq2rc, len1, len2, min_len)]
-    scans = seqpurge_scans(*t, a1, a2)
+    scans, ins = seqpurge_scans(*t, a1, a2)
     table = torch.from_numpy(match_probability_table(0.25, sp.MAXLEN)).to(device)
     lens = torch.stack(t[3:5])
     params = dict(PARAMS, ec=ec)
@@ -412,23 +466,24 @@ def decide_case_for(read1, read2, seq2rc, len1, len2, min_len, quals,
     pb, pq, pout, pacc = inputs()
     # the work these inputs need, from the plain version's own steps
     cb, cq, cout, cacc = inputs()
-    sp.seqpurge_decide_plain(scans, cb, cq, lens, table, cout, cacc, **params)
-    best = sp.insert_offsets_plain(scans, lens, table, PARAMS["match_perc"], PARAMS["mep"])
+    sp.seqpurge_decide_plain(scans, ins, cb, cq, lens, table, cout, cacc, **params)
+    best = sp.insert_offsets_plain(scans, ins, lens, table, PARAMS["match_perc"],
+                                   PARAMS["mep"])
     hits = sp.first_hits_plain(scans, lens, table, PARAMS["match_perc"], PARAMS["mep"])
     ln = lens.to(torch.int64)
-    examined = (ln.min(0).values - 1).clamp(min=0).sum()
+    inserts = int((ln.min(0).values - 1).clamp(min=0).sum())
+    adapters = 0
     for hit, n in zip(hits, ln):
-        examined += torch.where(hit >= 0, hit + 1, n)[best < 0].sum()
-    examined = int(examined)
+        adapters += int(torch.where(hit >= 0, hit + 1, n)[best < 0].sum())
     return Case("seqpurge_decide", sp.seqpurge_decide_into,
-                lambda: sp.seqpurge_decide_into(scans, kb, kq, lens, table, kout,
+                lambda: sp.seqpurge_decide_into(scans, ins, kb, kq, lens, table, kout,
                                                 kacc, **params),
-                lambda: sp.seqpurge_decide_plain(scans, pb, pq, lens, table, pout,
+                lambda: sp.seqpurge_decide_plain(scans, ins, pb, pq, lens, table, pout,
                                                  pacc, **params),
                 lambda: ([kout, kacc, kb, kq], [pout, pacc, pb, pq]),
-                bytes=8 * examined + int(cout[1:].to(torch.int64).sum()) + 8 * B
-                + 12 * B + 8 * sp.ACC_SIZE,
-                ops=4 * examined)
+                bytes=4 * inserts + 8 * adapters + int(cout[1:].to(torch.int64).sum())
+                + 8 * B + 12 * B + 8 * sp.ACC_SIZE,
+                ops=4 * (inserts + adapters))
 
 
 def device_ms(fn: Callable[[], None], calls: int = 10, runs: int = 5) -> float:

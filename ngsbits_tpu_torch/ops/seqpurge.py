@@ -25,8 +25,9 @@ from __future__ import annotations
 
 import torch
 
-from .pallas_kernels import (MAX_SCAN_WIDTH, N_CODE, _check, _launched, _lib,
-                             _ptr, _route, _stream, insert_scan_into)
+from .pallas_kernels import (INSERT_COUNT, MAX_SCAN_WIDTH, N_CODE, _check,
+                             _launched, _lib, _ptr, _route, _stream,
+                             insert_scan_into)
 
 MAX_ADAPTER = 64   # the kernels carry at most this many adapter bases
 
@@ -201,11 +202,13 @@ def insert_scan(seq1: torch.Tensor, seq2rc: torch.Tensor,
 
     ``seq1``: ``[B, L]`` uint8 ASCII read 1 (zero-padded); ``seq2rc``: the
     reverse complement of read 2, likewise; ``min_len``: ``[B]`` int32.
-    Returns (matches, mismatches), ``[B, L]`` int32 indexed by offset.
+    Returns (matches, mismatches), ``[B, L]`` int32 indexed by offset, as
+    the JAX package's: K2's int16 counts, widened.
     """
-    m, mm = _outputs(seq1, 2)
+    m, mm = (torch.empty(seq1.shape, dtype=INSERT_COUNT, device=seq1.device)
+             for _ in range(2))
     insert_scan_into(seq1, seq2rc, min_len, m, mm)
-    return m, mm
+    return m.to(torch.int32), mm.to(torch.int32)
 
 
 def adapter_evidence(read1, read2, len1, len2, a1: bytes, a2: bytes):
@@ -237,7 +240,7 @@ ACC_SIZE = sum(n for _, n in ACC_FIELDS)
 # what acc_fields(acc)["counters"] counts, in reads
 COUNTERS = ("reads_trimmed_insert", "reads_trimmed_adapter", "reads_trimmed_q",
             "reads_trimmed_n")
-SCAN_ROWS = 10  # insert m, mm; evidence m1, mm1, m2, mm2; prefix m, mm of each read
+SCAN_ROWS = 8  # evidence m1, mm1, m2, mm2; prefix m, mm of read 1, of read 2
 
 
 def acc_fields(acc):
@@ -287,12 +290,13 @@ def _lookup(table, tot, k):
     return table.reshape(-1)[tot * table.shape[1] + k]
 
 
-def insert_offsets_plain(scans, lens, table, match_perc, mep):
+def insert_offsets_plain(scans, ins, lens, table, match_perc, mep):
     """Step 1: each pair's insert offset, or -1. ``best[b]`` is the offset
     1 <= o < min(len1, len2) of the smallest p-value among those that pass
     the ratio test, ``p <= mep`` and the adapter evidence; the smallest such
     offset among equal p-values."""
-    m, mm, m1, mm1, m2, mm2 = scans[:6].to(torch.int64)
+    m, mm = ins.to(torch.int64)
+    m1, mm1, m2, mm2 = scans[:4].to(torch.int64)
     len1, len2 = lens.to(torch.int64)
     L = m.shape[1]
     off = torch.arange(L, device=m.device)[None, :]
@@ -314,7 +318,7 @@ def first_hits_plain(scans, lens, table, match_perc, mep):
     whose adapter-prefix counts pass the ratio test and ``p <= mep``, or -1.
     Returns (read 1's, read 2's)."""
     hits = []
-    for k, ln in zip((6, 8), lens.to(torch.int64)):
+    for k, ln in zip((4, 6), lens.to(torch.int64)):
         am, amm = scans[k].to(torch.int64), scans[k + 1].to(torch.int64)
         t = am + amm
         off = torch.arange(am.shape[1], device=am.device)[None, :]
@@ -385,7 +389,7 @@ def _correct_errors(bases, quals, has, count, acc):
     quals[1] = torch.where(r2, q1m, q2)
 
 
-def seqpurge_decide_plain(scans, bases, quals, lens, table, out, acc, *,
+def seqpurge_decide_plain(scans, ins, bases, quals, lens, table, out, acc, *,
                           match_perc, mep, qcut, qwin, qoff, ncut, ec):
     """Plain PyTorch D: the JAX package's numpy decisions
     (``ngsbits_tpu/qc/seqpurge.py:267-382``) as dense ``[B, L]`` tensor ops
@@ -396,7 +400,7 @@ def seqpurge_decide_plain(scans, bases, quals, lens, table, out, acc, *,
     counters = f["counters"]
 
     # 1. insert match, consensus pileups, -ec
-    best = insert_offsets_plain(scans, lens, table, match_perc, mep)
+    best = insert_offsets_plain(scans, ins, lens, table, match_perc, mep)
     has = best >= 0
     nl = len2 - best
     new1 = torch.where(has, torch.minimum(len1, nl), len1)
@@ -439,8 +443,9 @@ def seqpurge_decide_plain(scans, bases, quals, lens, table, out, acc, *,
     out[2] = new2
 
 
-def seqpurge_decide_into(scans: torch.Tensor, bases: torch.Tensor,
-                         quals: torch.Tensor, lens: torch.Tensor,
+def seqpurge_decide_into(scans: torch.Tensor, ins: torch.Tensor,
+                         bases: torch.Tensor, quals: torch.Tensor,
+                         lens: torch.Tensor,
                          table: torch.Tensor, out: torch.Tensor,
                          acc: torch.Tensor, *, match_perc: float, mep: float,
                          qcut: int, qwin: int, qoff: int, ncut: int,
@@ -452,9 +457,10 @@ def seqpurge_decide_into(scans: torch.Tensor, bases: torch.Tensor,
     ``ec`` error correction of the insert pairs, the adapter match of the
     others, quality and N trimming, and the statistics.
 
-    ``scans`` is ``[10, B, L]`` int32, the three scans' outputs in this
-    order: insert matches and mismatches, the four adapter evidence counts,
-    the adapter-prefix matches and mismatches of read 1 and of read 2.
+    ``scans`` is ``[8, B, L]`` int32, the adapter scans' outputs in this
+    order: the four adapter evidence counts, the adapter-prefix matches and
+    mismatches of read 1 and of read 2; ``ins`` is ``[2, B, L]`` int16, K2's
+    insert matches and mismatches.
     ``bases``/``quals`` are ``[2, B, L]`` uint8 ASCII (read 1, read 2;
     corrected in place with ``ec``; bytes past a read's length are never
     read), ``lens`` ``[2, B]`` int32 in [0, L], ``table`` the ``[T, T]``
@@ -470,10 +476,11 @@ def seqpurge_decide_into(scans: torch.Tensor, bases: torch.Tensor,
                          f"with T >= {max(L, MAX_ADAPTER + 1)}")
     params = dict(match_perc=float(match_perc), mep=float(mep), qcut=int(qcut),
                   qwin=int(qwin), qoff=int(qoff), ncut=int(ncut), ec=bool(ec))
-    if _route(scans, bases, quals, lens, table, out, acc) == "cpu":
-        return seqpurge_decide_plain(scans, bases, quals, lens, table, out, acc,
-                                     **params)
+    if _route(scans, ins, bases, quals, lens, table, out, acc) == "cpu":
+        return seqpurge_decide_plain(scans, ins, bases, quals, lens, table, out,
+                                     acc, **params)
     _check("scans", scans, torch.int32, (SCAN_ROWS, B, L))
+    _check("ins", ins, INSERT_COUNT, (2, B, L))
     _check("bases", bases, torch.uint8, (2, B, L))
     _check("quals", quals, torch.uint8, (2, B, L))
     _check("lens", lens, torch.int32, (2, B))
@@ -483,7 +490,8 @@ def seqpurge_decide_into(scans: torch.Tensor, bases: torch.Tensor,
     if B == 0:
         return
     rc = _lib().ngs_seqpurge_decide(
-        _ptr(scans), _ptr(bases), _ptr(quals), _ptr(lens), _ptr(table), T, B, L,
+        _ptr(scans), _ptr(ins), _ptr(bases), _ptr(quals), _ptr(lens), _ptr(table),
+        T, B, L,
         params["match_perc"], params["mep"], params["qcut"], params["qwin"],
         params["qoff"], params["ncut"], int(params["ec"]), _ptr(out), _ptr(acc),
         ACC_SIZE, _stream(scans))

@@ -8,13 +8,14 @@ Auxilary.h:100-280, FastqFileStream.cpp:52-115 for trimQuality/trimN).
 Per batch, the host copies the bases and quals of both mates, padded to one
 width L, and their lengths into one pinned buffer, and one copy takes them to
 the device. There the reverse complement of read 2 is gathered through a
-complement table, the three scans (insert match, adapter evidence at each
-candidate insert, adapter prefix on each mate) fill ten ``[B, L]`` int32
-counts, and one launch of ``seqpurge_decide`` turns them into each pair's
-insert offset and new lengths, corrects the reads with -ec, and adds the
-batch's statistics into int64 accumulators. Every p-value comparison is a
-float64 lookup into the exact binomial-tail table (core/basicstats.py), made
-as the host makes it, so decisions are bit-identical to the JAX package's.
+complement table, the three scans fill ``[B, L]`` counts (the insert match
+two int16, the adapter evidence at each candidate insert and the adapter
+prefix on each mate eight int32), and one launch of ``seqpurge_decide``
+turns them into each pair's insert offset and new lengths, corrects the
+reads with -ec, and adds the batch's statistics into int64 accumulators.
+Every p-value comparison is a float64 lookup into the exact binomial-tail
+table (core/basicstats.py), made as the host makes it, so decisions are
+bit-identical to the JAX package's.
 One copy brings back the per-pair results and the accumulators (with -ec also
 the corrected reads); no count array leaves the device. There is no host-only
 route: everything runs on the device the engine was given (on the CPU the
@@ -33,7 +34,7 @@ import torch
 from ..core.basicstats import match_probability_table
 from ..io import native
 from ..io.fastq import FastqBatch
-from ..ops.pallas_kernels import insert_scan_into
+from ..ops.pallas_kernels import INSERT_COUNT, insert_scan_into
 from ..ops.seqpurge import (ACC_SIZE, COUNTERS, MAXLEN, SCAN_ROWS, acc_fields,
                             adapter_evidence_into, adapter_scan_into,
                             complement_table, seqpurge_decide_into)
@@ -219,18 +220,19 @@ class SeqPurgeEngine:
         if on_card:
             marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
             marks[0].record()
+        ins = torch.empty((2, B, L), dtype=INSERT_COUNT, device=self.device)
         scans = torch.empty((SCAN_ROWS, B, L), dtype=torch.int32, device=self.device)
-        insert_scan_into(seq1, seq2rc, min_len, scans[0], scans[1])
+        insert_scan_into(seq1, seq2rc, min_len, ins[0], ins[1])
         adapter_evidence_into(seq1, read2, d_len1, d_len2,
                               p.a1[:p.adapter_overlap], p.a2[:p.adapter_overlap],
-                              *scans[2:6])
-        adapter_scan_into(seq1, d_len1, p.a1[:p.a_size], scans[6], scans[7])
-        adapter_scan_into(read2, d_len2, p.a2[:p.a_size], scans[8], scans[9])
+                              *scans[:4])
+        adapter_scan_into(seq1, d_len1, p.a1[:p.a_size], scans[4], scans[5])
+        adapter_scan_into(read2, d_len2, p.a2[:p.a_size], scans[6], scans[7])
         t3 = time.perf_counter()
         if on_card:
             marks[1].record()
         dev["acc"].zero_()
-        seqpurge_decide_into(scans, dev["reads"][:2], dev["reads"][2:], dev["lens"],
+        seqpurge_decide_into(scans, ins, dev["reads"][:2], dev["reads"][2:], dev["lens"],
                              self.table, dev["out"], dev["acc"], **self._decide)
         if on_card:
             marks[2].record()

@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""SeqPurge's adapter scans (``adapter_evidence``, ``adapter_scan``) beside
-variants of themselves, timed on the card.
+"""SeqPurge's scans beside variants of themselves, timed on the card: the
+adapter scans (``adapter_evidence``, ``adapter_scan``) or K2
+(``insert_scan``).
 
-    python3 scripts/scan_variants.py [--parent DIR]
+    python3 scripts/scan_variants.py [--kernel adapters|insert] [--parent DIR]
 
 Builds variants of ``ngsbits_tpu_torch/csrc/seqpurge.cu`` under
 build/scan_variants/ (one nvcc per variant, all at once), each a copy of the
-source with checked text substitutions, and times both kernels at the main
-path's batch: B=10000 pairs, L=151, the TruSeq adapters, a window of 10
-bases (evidence) and a prefix of 20 (scan), the pairs of
-``ops/selfcheck.py::pairs``. Design variants (outputs held equal to the
-plain version first):
+source with checked text substitutions, and times the kernels at the main
+path's batch: B=10000 pairs, L=151, the pairs of ``ops/selfcheck.py::pairs``;
+for the adapter scans the TruSeq adapters, a window of 10 bases (evidence)
+and a prefix of 20 (scan).
+
+``--kernel adapters`` (the default). Design variants (outputs held equal to
+the plain version first):
 
   as built       the source unchanged
   no prefix      adapter_scan tests every window word for 'N' (as built
@@ -41,14 +44,39 @@ outputs are wrong and not checked):
                  remain): the same grid writes the outputs
   empty          every block returns at once: launch and scheduling alone
 
+``--kernel insert``: K2 with int16 outputs. Design variants:
+
+  as built       the source unchanged
+  int32 stores   int32 outputs (as built: int16)
+  no fold        a unit takes one group pair, no mirror (as built: group
+                 pairs u and P - 1 - u, the folded triangle)
+  exact only     every pair takes the compare that is exact for bytes with
+                 bit 7 set (as built: pairs without such bytes take one
+                 operation less per word)
+  unroll 2       the word loop unrolled twice
+  masked counts  the counted positions as __dp4a of the ANDed flags (as
+                 built: __dp4a of the two flag words, no AND)
+  64 threads, 256 threads   threads of a block, one unit each per tile
+                 (as built: 128)
+  grid 16/SM     grids of at most 16 blocks per SM (as built: 8)
+
+and the ablations no compares, stores only and empty, as above (stores
+only keeps the tiles' copies and the zeros past short overlaps), and:
+
+  no stores      the counts land in shared memory, none is written out
+  no counted     no __dp4a of the flag words (the counted positions)
+  m by xor       a logic operation in place of the matches' __dp4a
+  adds for dp4a  an addition in place of each __dp4a
+
 Yardstick, not a scan: ``zero_``, PyTorch's ``zero_()`` of the kernel's
 output tensors (the same bytes written, one launch per output).
 
 Times: device time of 10 calls captured in a CUDA graph (L2-warm) and one
 call after a 128 MB overwrite and read (cold), as chip_smoke.py times
 kernels. With ``--parent DIR`` (a checkout of another commit), that
-commit's seqpurge.cu is built and timed too. Prints one line per variant
-and kernel and, last, one JSON line with every result. Needs a CUDA device.
+commit's seqpurge.cu is built and timed too, its K2 with int32 outputs (as
+K2 wrote them before its int16 counts). Prints one line per variant and
+kernel and, last, one JSON line with every result. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -173,7 +201,7 @@ _QUAD = [
 ]
 
 # name: (substitutions, ablation)
-VARIANTS = {
+ADAPTER_VARIANTS = {
     "as built": ([], False),
     "no prefix": ([("? adapter_scan_kernel<5, true>", "? adapter_scan_kernel<5, false>")], False),
     "run-time words": ([("? adapter_evidence_kernel<3>", "? adapter_evidence_kernel<0>"),
@@ -204,6 +232,60 @@ VARIANTS = {
 }
 
 
+_IN_COMPARE = ("    for (int k = 0; k < words; ++k) {\n"
+               "        const uint2 x = a[k];\n"
+               "        const uint2 hi = c[g + k + 2];\n"
+               "#pragma unroll\n"
+               "        for (int s = 0; s < 4; ++s) {\n"
+               "            const unsigned w1 = s ? __funnelshift_r(mid.x, hi.x, 8 * s) : mid.x;"
+               "  // offset 4g + 4 + s\n"
+               "            const unsigned f1 = s ? __funnelshift_r(mid.y, hi.y, 8 * s) : mid.y;\n"
+               "            count_word<SEVEN>(x.x, x.y, w0[s], f0[s], m[s], t[s]);\n"
+               "            count_word<SEVEN>(x.x, x.y, w1, f1, m[4 + s], t[4 + s]);\n"
+               "            w0[s] = w1;\n"
+               "            f0[s] = f1;\n"
+               "        }\n"
+               "        mid = hi;\n"
+               "    }\n")
+_IN_NO_COMPARE = "    m[0] = 128u * words + w0[1] + f0[2];\n    t[1] = 16384u * g;\n"
+_IN_STORES = ("                matches[out0 + r * L + o] = counts[r * Lp + o];\n"
+              "                mismatches[out0 + r * L + o] = counts[(R + r) * Lp + o];\n")
+_IN_STAGE = ("            const bool high = stage_flagged(s1 + r * W, raw1, off1 + r * L, n, W, lane) |\n"
+             "                              stage_flagged(s2 + r * W, raw2, off2 + r * L, n, W, lane);\n")
+_IN_MIRROR = "    if (v > u) insert_pair<SEVEN>(a, c, v, G - 2 * v, m_row, mm_row);\n"
+_IN_LOOP = "    for (int k = 0; k < words; ++k) {\n        const uint2 x = a[k];\n"
+_IN_HEAD = "    const int Lp = (L + 7) & ~7;                      // a row of counts: group pair p at 8p\n"
+_IN_THREADS = "constexpr int kInsertThreads = 128;"
+
+INSERT_VARIANTS = {
+    "as built": ([], False),
+    "int32 stores": ([("using Count = int16_t;", "using Count = int;")], False),
+    "no fold": ([(_IN_MIRROR, ""), ("            if (2 * u < P) {\n", "            if (u < P) {\n"),
+                 ("    const int U = (L + 15) / 16;", "    const int U = (L + 7) / 8;")], False),
+    "exact only": ([("                if (ns[r] & 1)\n", "                if (true)\n")], False),
+    "unroll 2": ([(_IN_LOOP, "#pragma unroll 2\n" + _IN_LOOP)], False),
+    "masked counts": ([("    t = __dp4a(xf, f, t);\n", "    t = __dp4a(xf & f, 0x01010101u, t);\n"),
+                       ("t[j] = (t[j] >> 14) - m[j];", "t[j] = (t[j] >> 7) - m[j];")], False),
+    "64 threads": ([(_IN_THREADS, "constexpr int kInsertThreads = 64;")], False),
+    "256 threads": ([(_IN_THREADS, "constexpr int kInsertThreads = 256;")], False),
+    "grid 16/SM": ([("8LL * ngs::sm_count();", "16LL * ngs::sm_count();")], False),
+    "no compares": ([(_IN_COMPARE, _IN_NO_COMPARE)], True),
+    "no stores": ([(_IN_STORES, "                if (counts[r * Lp + o] == 0x4000 + L) "
+                                "matches[out0 + o] = 0;\n")], True),
+    "adds for dp4a": ([("    m = __dp4a(~differ & xf, 0x01010101u, m);\n"
+                        "    t = __dp4a(xf, f, t);\n",
+                        "    m += ~differ & xf;\n    t += xf ^ f;\n")], True),
+    "no counted": ([("    t = __dp4a(xf, f, t);\n", "")], True),
+    "m by xor": ([("    m = __dp4a(~differ & xf, 0x01010101u, m);\n",
+                   "    m ^= ~differ & xf;\n")], True),
+    "stores only": ([(_IN_STAGE, "            const bool high = false;\n"),
+                     (_IN_COMPARE, _IN_NO_COMPARE)], True),
+    "empty": ([(_IN_HEAD, _IN_HEAD + "    if (B > 0) return;\n")], True),
+}
+VARIANTS = {"adapters": ADAPTER_VARIANTS, "insert": INSERT_VARIANTS}
+INT32_OUTPUTS = ("int32 stores", "parent")  # K2 variants whose outputs are int32
+
+
 def _variant_source(subs: list[tuple[str, str]]) -> str:
     text = (_build.CSRC / "seqpurge.cu").read_text()
     for old, new in subs:
@@ -213,12 +295,14 @@ def _variant_source(subs: list[tuple[str, str]]) -> str:
     return text
 
 
-def _build_all(parent: Path | None) -> dict[str, ctypes.CDLL]:
-    """One library per variant (and the parent's), nvcc all at once."""
+def _build_all(variants: dict, parent: Path | None,
+               entry: str) -> dict[str, ctypes.CDLL]:
+    """One library per variant (and the parent's), nvcc all at once; prints
+    ptxas's lines for the kernels whose names hold ``entry``."""
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "launch.cuh").write_text((_build.CSRC / "launch.cuh").read_text())
     sources = {}
-    for i, (name, (subs, _)) in enumerate(VARIANTS.items()):
+    for i, (name, (subs, _)) in enumerate(variants.items()):
         sources[name] = OUT / f"variant{i}.cu"
         sources[name].write_text(_variant_source(subs))
     if parent is not None:
@@ -234,13 +318,18 @@ def _build_all(parent: Path | None) -> dict[str, ctypes.CDLL]:
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        shown = False
         for line in log.splitlines():
-            if "adapter" in line or "registers" in line or "stack" in line:
+            if "Compiling entry" in line:
+                shown = entry in line
+            if shown and ("registers" in line or "stack" in line):
                 print(f"  [{name}] {line.strip()}")
         lib = ctypes.CDLL(str(libs[name]))
         lib.ngs_adapter_evidence.argtypes = [p, p, p, p, i, i, p, i, p, i, p, p, p, p, p]
         lib.ngs_adapter_scan.argtypes = [p, p, i, i, p, i, p, p, p]
-        lib.ngs_adapter_evidence.restype = lib.ngs_adapter_scan.restype = ctypes.c_int
+        lib.ngs_insert_scan.argtypes = [p, p, p, i, i, p, p, p]
+        for fn in (lib.ngs_adapter_evidence, lib.ngs_adapter_scan, lib.ngs_insert_scan):
+            fn.restype = ctypes.c_int
         loaded[name] = lib
     return loaded
 
@@ -249,8 +338,42 @@ def _ptrs(*ts):
     return [ctypes.c_void_p(t.data_ptr()) for t in ts]
 
 
+def _kernels(family: str, dev: torch.device) -> dict:
+    """name: (bytes needed, plain version into outputs, outputs, launch on a
+    library into outputs)."""
+    read1, read2, seq2rc, len1, len2, min_len = (
+        torch.from_numpy(a).to(dev) for a in selfcheck.pairs(B, L, seed=B))
+
+    def stream():  # the current one, which a CUDA graph's capture replaces
+        return torch.cuda.current_stream().cuda_stream
+
+    if family == "insert":
+        return {"insert_scan": (
+            2 * B * L + 4 * B + 4 * B * L,
+            lambda out: selfcheck.pk.insert_scan_plain(read1, seq2rc, min_len, *out), 2,
+            lambda lib, out: lib.ngs_insert_scan(*_ptrs(read1, seq2rc, min_len), B, L,
+                                                 *_ptrs(*out), stream()))}
+    w1, w2, ad = A1[:OVERLAP], A2[:OVERLAP], A1[:A_SIZE]
+    return {
+        "adapter_evidence": (
+            2 * B * L + 8 * B + 16 * B * L,
+            lambda out: selfcheck.sp.adapter_evidence_plain(read1, read2, len1, len2,
+                                                            w1, w2, *out), 4,
+            lambda lib, out: lib.ngs_adapter_evidence(
+                *_ptrs(read1, read2, len1, len2), B, L, w1, len(w1), w2, len(w2),
+                *_ptrs(*out), stream())),
+        "adapter_scan": (
+            B * L + 4 * B + 8 * B * L,
+            lambda out: selfcheck.sp.adapter_scan_plain(read1, len1, ad, *out), 2,
+            lambda lib, out: lib.ngs_adapter_scan(*_ptrs(read1, len1), B, L, ad, len(ad),
+                                                  *_ptrs(*out), stream())),
+    }
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=sorted(VARIANTS), default="adapters",
+                    help="which scans to time beside their variants")
     ap.add_argument("--parent", type=Path,
                     help="a checkout of another commit whose scans to time too")
     args = ap.parse_args(argv)
@@ -258,37 +381,24 @@ def main(argv: list[str] | None = None) -> int:
         print("scan_variants: no CUDA device available", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    libs = _build_all(args.parent)
-    read1, read2, _, len1, len2, _ = (torch.from_numpy(a).to(dev)
-                                      for a in selfcheck.pairs(B, L, seed=B))
-    w1, w2, ad = A1[:OVERLAP], A2[:OVERLAP], A1[:A_SIZE]
+    variants = VARIANTS[args.kernel]
+    libs = _build_all(variants, args.parent,
+                      "insert_scan" if args.kernel == "insert" else "adapter")
 
-    def outputs(n):
-        return [torch.empty((B, L), dtype=torch.int32, device=dev) for _ in range(n)]
+    def outputs(n, name=""):
+        dtype = torch.int32
+        if args.kernel == "insert" and name not in INT32_OUTPUTS:
+            dtype = selfcheck.pk.INSERT_COUNT
+        return [torch.empty((B, L), dtype=dtype, device=dev) for _ in range(n)]
 
-    kernels = {  # name: (bytes needed, plain version's outputs, launch on a library)
-        "adapter_evidence": (
-            2 * B * L + 8 * B + 16 * B * L,
-            lambda out: selfcheck.sp.adapter_evidence_plain(read1, read2, len1, len2,
-                                                            w1, w2, *out), 4,
-            lambda lib, out: lib.ngs_adapter_evidence(
-                *_ptrs(read1, read2, len1, len2), B, L, w1, len(w1), w2, len(w2),
-                *_ptrs(*out), torch.cuda.current_stream().cuda_stream)),
-        "adapter_scan": (
-            B * L + 4 * B + 8 * B * L,
-            lambda out: selfcheck.sp.adapter_scan_plain(read1, len1, ad, *out), 2,
-            lambda lib, out: lib.ngs_adapter_scan(*_ptrs(read1, len1), B, L, ad, len(ad),
-                                                  *_ptrs(*out),
-                                                  torch.cuda.current_stream().cuda_stream)),
-    }
     results = []
-    for kname, (nbytes, plain, n_out, launch) in kernels.items():
+    for kname, (nbytes, plain, n_out, launch) in _kernels(args.kernel, dev).items():
         bound_ms = nbytes / PEAK_BYTES * 1e3
         want = outputs(n_out)
         plain(want)
         calls = {}
         for name, lib in libs.items():
-            out = outputs(n_out)
+            out = outputs(n_out, name)
 
             def call(lib=lib, out=out, name=name):
                 rc = launch(lib, out)
@@ -296,14 +406,17 @@ def main(argv: list[str] | None = None) -> int:
                     raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
             call()
             torch.cuda.synchronize()
-            if not VARIANTS.get(name, ([], False))[1] and not all(
-                    torch.equal(g, w) for g, w in zip(out, want)):
-                raise AssertionError(f"{kname} {name}: differs from the plain version")
+            if not variants.get(name, ([], False))[1] and not all(
+                    torch.equal(g.to(torch.int32), w.to(torch.int32))
+                    for g, w in zip(out, want)):
+                print(f"{kname:16s} {name:14s} DIFFERS from the plain version: not timed")
+                results.append(dict(kernel=kname, variant=name, differs=True))
+                continue
             calls[name] = call
         zeroed = outputs(n_out)
         calls["zero_"] = lambda z=zeroed: [t.zero_() for t in z]
         for name, call in calls.items():
-            ablation = name == "zero_" or VARIANTS.get(name, ([], False))[1]
+            ablation = name == "zero_" or variants.get(name, ([], False))[1]
             ms = selfcheck.device_ms(call)
             cold = selfcheck.cold_ms(call)
             print(f"{kname:16s} {name:14s} device {ms:.4f} ms, cold {cold:.4f} ms, "
@@ -312,7 +425,7 @@ def main(argv: list[str] | None = None) -> int:
             results.append(dict(kernel=kname, variant=name, ablation=ablation, ms=ms,
                                 cold_ms=cold, bound_ms=bound_ms))
     print(json.dumps({"scan_variants": results}))
-    return 0
+    return 1 if any(r.get("differs") for r in results) else 0
 
 
 if __name__ == "__main__":

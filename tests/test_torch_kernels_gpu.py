@@ -6,7 +6,9 @@ quality profile and random bytes past the reads, SeqPurge's scans at theirs (B=1
 pairs, L=151) and at a ragged shape (B=1237, L=250), with adapters with and
 without N and adapter prefixes of 15 and 20 bases, and the adapter scans at
 the edges of their design (L from 1 to 1000, windows of 1 to 64 bases, random
-bytes past the reads, all-N pairs), and SeqPurge's decisions at the
+bytes past the reads, all-N pairs), K2 at the edges of its contract (L from 1
+to 24,576, min_len below 0 and above L, bytes outside ACGTN, all-N pairs,
+random bytes past min_len), and SeqPurge's decisions at the
 main path's batch, ragged rows, single pairs and rows of 999 bases, with and
 without -ec. Integer outputs: the tolerance is exact equality. Skips where
 no CUDA device is available."""
@@ -182,6 +184,44 @@ def test_adapter_scans_match_plain_versions_at_the_edges(L, B, size, with_n):
         torch.cuda.synchronize()
         assert case.wrapper.launches == before + 1, case.name
         assert selfcheck.max_abs_err(case) == 0, case.name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L", [(1, 1), (33, 1), (10000, 1), (1, 7), (33, 7), (10000, 7),
+                                 (1, 151), (33, 151), (10000, 151), (1, 1000), (33, 1000),
+                                 (10000, 1000), (1, 24576), (3, 24576)])
+def test_insert_scan_matches_plain_version_at_the_edges(B, L):
+    """K2 on ``selfcheck.insert_edge_pairs``: overlapping pairs, one base
+    repeated (counts up to L), any byte value, all-N pairs, min_len -1, 0,
+    L, above L and int32's largest, random bytes past min_len; tiles of
+    one row up to the widest rows the wrapper takes, and batches that are
+    not a multiple of a tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    case = selfcheck.insert_case(*(torch.from_numpy(a).cuda() for a in
+                                   selfcheck.insert_edge_pairs(B, L, seed=B + L)))
+    before = case.wrapper.launches
+    case.kernel()
+    case.plain()
+    torch.cuda.synchronize()
+    assert case.wrapper.launches == before + 1
+    assert selfcheck.max_abs_err(case) == 0
+
+
+@pytest.mark.gpu
+def test_insert_scan_refuses_wide_rows_and_int32_outputs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ngsbits_tpu_torch.ops import pallas_kernels as pk
+    before = pk.insert_scan_into.launches
+    for L, dtype, match in ((pk.MAX_SCAN_WIDTH + 1, torch.int16, "exceeds"),
+                            (151, torch.int32, "dtype")):
+        rows = torch.zeros((2, L), dtype=torch.uint8, device="cuda")
+        n = torch.zeros(2, dtype=torch.int32, device="cuda")
+        out = [torch.empty((2, L), dtype=dtype, device="cuda") for _ in range(2)]
+        with pytest.raises((ValueError, TypeError), match=match):
+            pk.insert_scan_into(rows, rows, n, *out)
+    assert pk.insert_scan_into.launches == before
 
 
 @pytest.mark.gpu

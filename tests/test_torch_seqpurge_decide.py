@@ -138,15 +138,15 @@ def test_decisions_match_jax_engine_at_the_edges(monkeypatch, kind, route, ec):
 def _decide(mates, a1, a2, device="cpu", **extra):
     """The decisions on one batch, on ``device`` (the kernels on a card, the
     plain versions on the CPU): (out [3, B], acc fields, bases, quals,
-    scans, table) as numpy."""
+    K2's insert counts [2, B, L], table) as numpy."""
     (b1, q1, l1), (b2, q2, l2) = mates
     read1, read2 = (torch.from_numpy(b).to(device) for b in (b1, b2))
     len1, len2 = (torch.from_numpy(n).to(device) for n in (l1, l2))
     idx = len2[:, None] - 1 - torch.arange(read1.shape[1], device=device)[None, :]
     seq2rc = torch.where(idx >= 0, sp.complement_table(device)[
         torch.gather(read2, 1, idx.clamp(min=0).long()).long()], 0)
-    scans = selfcheck.seqpurge_scans(read1, read2, seq2rc, len1, len2,
-                                     torch.minimum(len1, len2), a1, a2)
+    scans, ins = selfcheck.seqpurge_scans(read1, read2, seq2rc, len1, len2,
+                                          torch.minimum(len1, len2), a1, a2)
     from ngsbits_tpu_torch.core.basicstats import match_probability_table
     table = torch.from_numpy(match_probability_table(0.25, sp.MAXLEN)).to(device)
     bases = torch.stack([read1, read2])
@@ -155,10 +155,10 @@ def _decide(mates, a1, a2, device="cpu", **extra):
     acc = torch.zeros(sp.ACC_SIZE, dtype=torch.int64, device=device)
     params = dict(selfcheck.PARAMS, ec=False)
     params.update(extra)
-    sp.seqpurge_decide_into(scans, bases, quals, torch.stack([len1, len2]), table,
-                            out, acc, **params)
+    sp.seqpurge_decide_into(scans, ins, bases, quals, torch.stack([len1, len2]),
+                            table, out, acc, **params)
     return (out.cpu().numpy(), sp.acc_fields(acc.cpu().numpy()), bases.cpu().numpy(),
-            quals.cpu().numpy(), scans.cpu().numpy(), table.cpu().numpy())
+            quals.cpu().numpy(), ins.cpu().numpy(), table.cpu().numpy())
 
 
 def test_ties_go_to_the_smallest_offset():
@@ -167,11 +167,12 @@ def test_ties_go_to_the_smallest_offset():
     of them wins: 5 on the short rows, and on the long ones an offset of a
     tie at 0.0 that spans lanes of a warp."""
     mates = _ties(np.random.default_rng(3), 720)
-    out, _, _, _, scans, table = _decide(mates, *POLY)
+    out, _, _, _, ins, table = _decide(mates, *POLY)
     ml = np.minimum(mates[0][2], mates[1][2])
     for b in range(len(ml)):
         o = np.arange(1, ml[b])
-        m, tot = scans[0, b, o], scans[0, b, o] + scans[1, b, o]
+        m, mm = ins[:, b, o].astype(np.int64)
+        tot = m + mm
         ok = (tot > 0) & ~(100.0 * m / np.maximum(tot, 1) < 80.0)
         pv = np.where(ok, table[tot, m], np.inf)
         best = o[pv == pv.min()]
@@ -185,7 +186,8 @@ def test_table_too_small_for_the_rows_is_refused():
     B, L = 2, 80
     with pytest.raises(ValueError, match="table"):
         sp.seqpurge_decide_into(
-            torch.zeros((10, B, L), dtype=torch.int32),
+            torch.zeros((sp.SCAN_ROWS, B, L), dtype=torch.int32),
+            torch.zeros((2, B, L), dtype=torch.int16),
             torch.zeros((2, B, L), dtype=torch.uint8),
             torch.zeros((2, B, L), dtype=torch.uint8),
             torch.zeros((2, B), dtype=torch.int32),

@@ -15,6 +15,7 @@ jax = pytest.importorskip("jax")
 from ngsbits_tpu.ops import pallas_kernels as jpk
 from ngsbits_tpu.ops import seqpurge as jsp
 from ngsbits_tpu_torch.ops import KERNELS, selfcheck
+from ngsbits_tpu_torch.ops import pallas_kernels as tpk
 from ngsbits_tpu_torch.ops import seqpurge as tsp
 
 ACGTN = np.frombuffer(b"ACGTN", dtype=np.uint8)
@@ -94,6 +95,55 @@ def test_insert_scan_matches_xla_and_host(ragged):
     _assert_equal(got, jsp.insert_scan(read1, seq2rc, min_len), names)
     _assert_equal(got, jsp.insert_scan_host(read1, seq2rc, min_len), names)
     assert int(got[0].max()) > 20   # some pairs really overlap
+
+
+def _insert_rows(kind, seed):
+    """Rows for K2's int16 counts: ``one_base``, one base repeated on both
+    sides at L=300 (a few N), so counts pass 255 and a byte-wide count
+    would wrap; ``any_byte``, bytes 0..255 on both sides, half the pairs
+    overlapping at a random offset; ``edges``, ``selfcheck.insert_edge_pairs``
+    (min_len -1, 0, above L and int32's largest, all-N pairs, random bytes
+    past min_len)."""
+    rng = np.random.default_rng(seed)
+    if kind == "edges":
+        return selfcheck.insert_edge_pairs(61, 130, seed)
+    if kind == "one_base":
+        B, L = 24, 300
+        seq1 = np.full((B, L), ord("G"), np.uint8)
+        seq2rc = np.full((B, L), ord("G"), np.uint8)
+        seq1[rng.random((B, L)) < 0.01] = ord("N")
+        seq2rc[rng.random((B, L)) < 0.01] = ord("N")
+        min_len = rng.integers(L - 20, L + 1, size=B).astype(np.int32)
+        return seq1, seq2rc, min_len
+    B, L = 50, 90
+    seq1 = rng.integers(0, 256, size=(B, L)).astype(np.uint8)
+    seq2rc = rng.integers(0, 256, size=(B, L)).astype(np.uint8)
+    for b in range(0, B, 2):
+        o = int(rng.integers(0, L))
+        seq2rc[b, o:] = seq1[b, :L - o]
+    min_len = rng.integers(0, L + 1, size=B).astype(np.int32)
+    return seq1, seq2rc, min_len
+
+
+@pytest.mark.parametrize("kind", ["one_base", "any_byte", "edges"])
+def test_int16_insert_scan_matches_xla_and_host(kind):
+    """K2's plain version into int16 outputs, as the engine gives them,
+    against the JAX package's XLA scan and host scan."""
+    seq1, seq2rc, min_len = _insert_rows(kind, seed=len(kind))
+    B, L = seq1.shape
+    got = [torch.empty((B, L), dtype=torch.int16) for _ in range(2)]
+    tpk.insert_scan_into(*_t(seq1, seq2rc, min_len), *got)
+    names = ["matches", "mismatches"]
+    for want in (jsp.insert_scan(seq1, seq2rc, min_len),
+                 jsp.insert_scan_host(seq1, seq2rc, min_len)):
+        for g, w, name in zip(got, want, names):
+            assert g.dtype == torch.int16, name
+            np.testing.assert_array_equal(g.numpy().astype(np.int32), np.asarray(w),
+                                          err_msg=name)
+    if kind == "one_base":
+        assert int(got[0].max()) > 255
+    else:
+        assert int(got[0].max()) > 20   # some pairs really overlap
 
 
 # adapter windows: the defaults, and variants with N and shorter adapters
