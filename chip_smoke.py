@@ -24,8 +24,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
             L=24,576: min_len below 0 and above L, bytes outside ACGTN,
             all-N pairs, random bytes past min_len); its
             decisions (``seqpurge_decide``) on the scans of a library with
-            adapters at the main batch, with and without -ec, and at B=1237,
-            L=250 (per-pair results, accumulators and corrected reads
+            adapters at the main batch, with and without -ec, at B=1237,
+            L=250 and at B=1237, L=999 (rows too wide to stage, read where
+            they lie; per-pair results, accumulators and corrected reads
             equal). Times per
             call (``ops/selfcheck.py``): ``ms`` device time (10 calls captured
             in a CUDA graph, replays between CUDA events, median of 5,
@@ -256,11 +257,12 @@ def kernels(dev: torch.device) -> dict:
         label = f"B={B} L={L} edges"
         _check_equal(case, label)
         print(f"{case.name:16s} {label}: equal", flush=True)
-    phase("kernels: SeqPurge decisions at B=10000, L=151 (with and without -ec) and "
-          "B=1237, L=250 (random bytes past the reads, all-N pairs)")
+    phase("kernels: SeqPurge decisions at B=10000, L=151 (with and without -ec), "
+          "B=1237, L=250 and B=1237, L=999 (random bytes past the reads, all-N pairs)")
     for B, L, name, ec in ((SP_BATCH, READ_LEN, "default", False),
                            (SP_BATCH, READ_LEN, "default", True),
-                           (1237, 250, "default", False), (1237, 250, "with_n", True)):
+                           (1237, 250, "default", False), (1237, 250, "with_n", True),
+                           (1237, 999, "default", True)):
         main = (B, L, ec) == (SP_BATCH, READ_LEN, False)
         case = selfcheck.decide_case(B, L, dev, *ADAPTERS[name], ec=ec, seed=B + L,
                                      dirty=L != READ_LEN)

@@ -17,7 +17,8 @@
 //
 // A position is skipped when either side is 'N'. All outputs are [B, L]
 // indexed by offset, written in full (zeros where nothing counts): int16
-// for K2 (counts of at most L <= 24,576), int32 for the adapter scans.
+// for K2 (counts of at most L <= 24,576), one byte for the adapter scans
+// (counts of at most their 64-base window).
 //
 // K2 does B * n(n+1)/2 byte compares per batch for pairs of overlap n (each
 // input byte is compared about n/2 times). Its TPU kernel rolled a VMEM tile
@@ -44,15 +45,17 @@ namespace {
 
 constexpr int kN = 'N';
 constexpr int kMaxAdapter = 64;
+using AdapterCount = uint8_t;  // ops/seqpurge.py::ADAPTER_COUNT: at most kMaxAdapter
 
 // ---------------------------------------------------------------------------
 // The adapter scans. For each (pair, offset) they compare a window of w
 // bases (10 for adapter_evidence, 20 for adapter_scan on the main path)
-// with an adapter and write 16 (evidence) or 8 (scan) bytes of counts.
+// with an adapter and write 4 (evidence) or 2 (scan) one-byte counts.
 //
-// What bounds them on this card: the bytes they write (24 MB and 12 MB at
-// B=10000, L=151; about 7 and 4 us at 3.35 TB/s), with the compares close
-// behind. Their first design (one thread per (pair, offset), a 64-bit
+// What bounds them on this card: with int32 counts, the bytes they wrote
+// (24 MB and 12 MB at B=10000, L=151; about 7 and 4 us at 3.35 TB/s), with
+// the compares close behind; one-byte counts leave a quarter of those
+// stores, and the compares come first. Their first design (one thread per (pair, offset), a 64-bit
 // division per item, one byte load and two bounds tests per window
 // position, the adapters passed by value and indexed at run time, which
 // gives every thread a local copy) ran at about a tenth of that bound.
@@ -271,8 +274,8 @@ __global__ void __launch_bounds__(kScanThreads, 4) adapter_evidence_kernel(
     const uint8_t* __restrict__ read1, const uint8_t* __restrict__ read2,
     const int* __restrict__ len1, const int* __restrict__ len2, int B, int L, int R, int s4,
     int rw, const __grid_constant__ Window a1, const __grid_constant__ Window a2,
-    int* __restrict__ m1, int* __restrict__ mm1, int* __restrict__ m2,
-    int* __restrict__ mm2) {
+    AdapterCount* __restrict__ m1, AdapterCount* __restrict__ mm1, AdapterCount* __restrict__ m2,
+    AdapterCount* __restrict__ mm2) {
     extern __shared__ __align__(16) unsigned smem[];
     unsigned* raw1 = smem;                 // rw words each: the tile's bytes as copied
     unsigned* raw2 = raw1 + rw;
@@ -342,8 +345,8 @@ __global__ void __launch_bounds__(kScanThreads, 4) adapter_evidence_kernel(
 template <int NW, bool PREFIX>
 __global__ void __launch_bounds__(kScanThreads, 4) adapter_scan_kernel(
     const uint8_t* __restrict__ read, const int* __restrict__ length, int B, int L, int R,
-    int s4, int rw, const __grid_constant__ Window ad, int* __restrict__ matches,
-    int* __restrict__ mismatches) {
+    int s4, int rw, const __grid_constant__ Window ad, AdapterCount* __restrict__ matches,
+    AdapterCount* __restrict__ mismatches) {
     extern __shared__ __align__(16) unsigned smem[];
     unsigned* raw = smem;                                  // rw words
     unsigned* rows_s = raw + rw;                           // R staged rows
@@ -642,7 +645,8 @@ int ngs_insert_scan(const void* seq1, const void* seq2rc, const void* min_len,
     return static_cast<int>(cudaGetLastError());
 }
 
-// B >= 1, 1 <= L <= 24576, n1 == n2 <= 64; the wrapper checks.
+// B >= 1, 1 <= L <= 24576, n1 == n2 <= 64; m1 .. mm2: [B, L] uint8. The
+// wrapper checks.
 int ngs_adapter_evidence(const void* read1, const void* read2, const void* len1,
                          const void* len2, int B, int L, const void* a1, int n1,
                          const void* a2, int n2, void* m1, void* mm1, void* m2,
@@ -659,12 +663,13 @@ int ngs_adapter_evidence(const void* read1, const void* read2, const void* len1,
     kernel<<<grid, kScanThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(read1), static_cast<const uint8_t*>(read2),
         static_cast<const int*>(len1), static_cast<const int*>(len2), B, L, R, s4, rw, w1, w2,
-        static_cast<int*>(m1), static_cast<int*>(mm1), static_cast<int*>(m2),
-        static_cast<int*>(mm2));
+        static_cast<AdapterCount*>(m1), static_cast<AdapterCount*>(mm1),
+        static_cast<AdapterCount*>(m2), static_cast<AdapterCount*>(mm2));
     return static_cast<int>(cudaGetLastError());
 }
 
-// B >= 1, 1 <= L <= 24576, a_size <= 64; the wrapper checks.
+// B >= 1, 1 <= L <= 24576, a_size <= 64; matches, mismatches: [B, L] uint8.
+// The wrapper checks.
 int ngs_adapter_scan(const void* read, const void* length, int B, int L,
                      const void* adapter, int a_size, void* matches,
                      void* mismatches, void* stream) {
@@ -681,7 +686,7 @@ int ngs_adapter_scan(const void* read, const void* length, int B, int L,
     if (const int err = scan_grid(kernel, B, R, smem, &grid)) return err;
     kernel<<<grid, kScanThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(read), static_cast<const int*>(length), B, L, R, s4, rw, ad,
-        static_cast<int*>(matches), static_cast<int*>(mismatches));
+        static_cast<AdapterCount*>(matches), static_cast<AdapterCount*>(mismatches));
     return static_cast<int>(cudaGetLastError());
 }
 

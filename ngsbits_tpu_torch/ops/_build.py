@@ -114,7 +114,7 @@ def library() -> ctypes.CDLL:
             lib.ngs_adapter_evidence.argtypes = [p, p, p, p, i, i, p, i, p, i,
                                                  p, p, p, p, p]
             lib.ngs_adapter_scan.argtypes = [p, p, i, i, p, i, p, p, p]
-            lib.ngs_seqpurge_decide.argtypes = [p, p, p, p, p, p, i, i, i, d, d,
+            lib.ngs_seqpurge_decide.argtypes = [p, p, p, p, p, p, p, i, i, i, d, d,
                                                 i, i, i, i, i, p, p, i, p]
             for fn in (lib.ngs_readqc_batch, lib.ngs_readqc_unpack,
                        lib.ngs_readqc_tails, lib.ngs_insert_scan,

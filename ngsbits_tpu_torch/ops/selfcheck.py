@@ -16,7 +16,7 @@ the edges of its contract.
 the work the function must do on its inputs: ``bytes`` (each input read once,
 each output written once; for K1 only the bytes inside the reads) and ``ops``
 (integer operations: compares and additions; for the scans, the compares
-that these inputs need, K2's four to an operation). ``device_ms``,
+that these inputs need, four to a 32-bit operation). ``device_ms``,
 ``cold_ms`` and ``call_ms`` time a call on the card. ``chip_smoke.py``, ``scripts/k1_variants.py`` and the
 ``gpu``-marked tests use them.
 """
@@ -44,7 +44,7 @@ class Case:
     outputs: Callable[[], tuple[list, list]]  # (kernel outputs, plain outputs)
     bytes: int = 0             # least bytes moved: inputs once, outputs once
     ops: int = 0               # integer operations on these inputs
-    inputs: tuple = ()         # K1's (bases, quals, lengths)
+    inputs: tuple = ()         # K1's (bases, quals, lengths); D's, see decide_case_for
 
 
 PROFILES = ("uniform", "binned", "wide")
@@ -211,13 +211,15 @@ def seqpurge_cases(B: int, L: int, device: torch.device, a1: bytes, a2: bytes,
                    dirty: bool = False) -> list[Case]:
     """K2, adapter_evidence (windows ``a1[:overlap]`` and ``a2[:overlap]``)
     and adapter_scan (``a1[:a_size]`` on read 1) at ``[B, L]``, on
-    ``pairs`` (the same ``dirty``)."""
+    ``pairs`` (the same ``dirty``). Operations: the adapter scans' compares
+    of each window base at each position, four to a 32-bit operation, as
+    their kernels make them."""
     read1, read2, seq2rc, len1, len2, min_len = (
         torch.from_numpy(a).to(device) for a in pairs(B, L, seed, dirty))
     w1, w2, ad = a1[:overlap], a2[:overlap], a1[:a_size]
 
     def out(n):
-        return [torch.empty((B, L), dtype=torch.int32, device=device)
+        return [torch.empty((B, L), dtype=sp.ADAPTER_COUNT, device=device)
                 for _ in range(n)]
 
     ek, ep = out(4), out(4)
@@ -227,14 +229,14 @@ def seqpurge_cases(B: int, L: int, device: torch.device, a1: bytes, a2: bytes,
                     lambda: sp.adapter_evidence_plain(read1, read2, len1, len2,
                                                       w1, w2, *ep),
                     lambda: (ek, ep),
-                    bytes=2 * B * L + 8 * B + 16 * B * L,
-                    ops=2 * len(w1) * B * L)
+                    bytes=2 * B * L + 8 * B + 4 * B * L,
+                    ops=-(-2 * len(w1) * B * L // 4))
     sk, sq = out(2), out(2)
     scan = Case("adapter_scan", sp.adapter_scan_into,
                 lambda: sp.adapter_scan_into(read1, len1, ad, *sk),
                 lambda: sp.adapter_scan_plain(read1, len1, ad, *sq),
                 lambda: (sk, sq),
-                bytes=B * L + 4 * B + 8 * B * L, ops=len(ad) * B * L)
+                bytes=B * L + 4 * B + 2 * B * L, ops=-(-len(ad) * B * L // 4))
     return [insert_case(read1, seq2rc, min_len), evidence, scan]
 
 
@@ -364,11 +366,11 @@ def pair_quals(len1, len2, L: int, seed: int = 0, dirty: bool = False):
 def seqpurge_scans(read1, read2, seq2rc, len1, len2, min_len, a1: bytes,
                    a2: bytes, a_size: int = 20, overlap: int = 10):
     """The engine's scan outputs for these tensors, through the scans'
-    wrappers (the kernels on a card): ``scans`` ``[8, B, L]`` int32 (the
+    wrappers (the kernels on a card): ``scans`` ``[8, B, L]`` one-byte (the
     adapter scans') and ``ins`` ``[2, B, L]`` int16 (K2's)."""
     B, L = read1.shape
     ins = torch.empty((2, B, L), dtype=pk.INSERT_COUNT, device=read1.device)
-    scans = torch.empty((sp.SCAN_ROWS, B, L), dtype=torch.int32, device=read1.device)
+    scans = torch.empty((sp.SCAN_ROWS, B, L), dtype=sp.ADAPTER_COUNT, device=read1.device)
     pk.insert_scan_into(read1, seq2rc, min_len, ins[0], ins[1])
     sp.adapter_evidence_into(read1, read2, len1, len2, a1[:overlap], a2[:overlap],
                              *scans[:4])
@@ -424,26 +426,29 @@ POLY = (b"A" * 20, b"T" * 20)   # adapters that the homopolymer pairs match
 
 
 def decide_case(B: int, L: int, device: torch.device, a1: bytes, a2: bytes,
-                ec: bool = False, seed: int = 0, dirty: bool = False) -> Case:
+                ec: bool = False, seed: int = 0, dirty: bool = False,
+                **params) -> Case:
     """``seqpurge_decide`` on the scans of ``adapter_pairs`` (the same
     ``dirty``) with ``pair_quals``; see ``decide_case_for``."""
     read1, read2, seq2rc, len1, len2, min_len = adapter_pairs(B, L, a1, a2, seed, dirty)
     quals = pair_quals(len1, len2, L, seed, dirty)
     return decide_case_for(read1, read2, seq2rc, len1, len2, min_len, quals, device,
-                           a1, a2, ec)
+                           a1, a2, ec, **params)
 
 
 def decide_case_for(read1, read2, seq2rc, len1, len2, min_len, quals,
                     device: torch.device, a1: bytes, a2: bytes,
-                    ec: bool = False) -> Case:
+                    ec: bool = False, **params) -> Case:
     """``seqpurge_decide`` on the scans of these numpy pairs (as ``pairs``
     returns them) with these ``[2, B, L]`` qualities and SeqPurge's default
-    parameters. The kernel and the plain version each correct their own
-    copy of the reads with ``ec``.
+    parameters (``PARAMS``, each overridden by ``params``). The kernel and
+    the plain version each correct their own
+    copy of the reads with ``ec``. ``inputs``: (scans, ins, bases, quals,
+    lens, table, need, params), the reads as given (never corrected).
 
     Bytes: the counts the decisions must read (insert counts at offsets
     1..min_len-1, two int16; adapter counts of pairs without an insert up to
-    each read's first hit, or its length, two int32), the bases of the final
+    each read's first hit, or its length, two bytes), the bases of the final
     reads (the N trim reads at least those), lengths, results and
     accumulators; a floor, leaving out the evidence counts and table entries
     at the candidates and the quality trim's reads. Operations: 4 per offset
@@ -454,7 +459,8 @@ def decide_case_for(read1, read2, seq2rc, len1, len2, min_len, quals,
     scans, ins = seqpurge_scans(*t, a1, a2)
     table = torch.from_numpy(match_probability_table(0.25, sp.MAXLEN)).to(device)
     lens = torch.stack(t[3:5])
-    params = dict(PARAMS, ec=ec)
+    params = dict(PARAMS, ec=ec, **params)
+    need = sp.decide_thresholds(table, params["match_perc"], params["mep"])
 
     def inputs():
         return (torch.from_numpy(np.stack([read1, read2])).to(device),
@@ -467,23 +473,24 @@ def decide_case_for(read1, read2, seq2rc, len1, len2, min_len, quals,
     # the work these inputs need, from the plain version's own steps
     cb, cq, cout, cacc = inputs()
     sp.seqpurge_decide_plain(scans, ins, cb, cq, lens, table, cout, cacc, **params)
-    best = sp.insert_offsets_plain(scans, ins, lens, table, PARAMS["match_perc"],
-                                   PARAMS["mep"])
-    hits = sp.first_hits_plain(scans, lens, table, PARAMS["match_perc"], PARAMS["mep"])
+    best = sp.insert_offsets_plain(scans, ins, lens, table, params["match_perc"],
+                                   params["mep"])
+    hits = sp.first_hits_plain(scans, lens, table, params["match_perc"], params["mep"])
     ln = lens.to(torch.int64)
     inserts = int((ln.min(0).values - 1).clamp(min=0).sum())
     adapters = 0
     for hit, n in zip(hits, ln):
         adapters += int(torch.where(hit >= 0, hit + 1, n)[best < 0].sum())
     return Case("seqpurge_decide", sp.seqpurge_decide_into,
-                lambda: sp.seqpurge_decide_into(scans, ins, kb, kq, lens, table, kout,
-                                                kacc, **params),
+                lambda: sp.seqpurge_decide_into(scans, ins, kb, kq, lens, table, need,
+                                                kout, kacc, **params),
                 lambda: sp.seqpurge_decide_plain(scans, ins, pb, pq, lens, table, pout,
                                                  pacc, **params),
                 lambda: ([kout, kacc, kb, kq], [pout, pacc, pb, pq]),
-                bytes=4 * inserts + 8 * adapters + int(cout[1:].to(torch.int64).sum())
+                bytes=4 * inserts + 2 * adapters + int(cout[1:].to(torch.int64).sum())
                 + 8 * B + 12 * B + 8 * sp.ACC_SIZE,
-                ops=4 * (inserts + adapters))
+                ops=4 * (inserts + adapters), inputs=(scans, ins, *inputs()[:2], lens,
+                                                      table, need, params))
 
 
 def device_ms(fn: Callable[[], None], calls: int = 10, runs: int = 5) -> float:

@@ -18,11 +18,13 @@ with their plain versions, under the dispatch rule of
 launch the kernel or raise), and the three scans as functions that allocate
 their outputs. The adapters are passed as bytes: they travel to the kernel by
 value. The kernels stage each tile of rows in shared memory, so rows are at
-most ``MAX_SCAN_WIDTH`` bases wide, as for K2.
+most ``MAX_SCAN_WIDTH`` bases wide, as for K2. The adapter scans write
+one-byte counts (``ADAPTER_COUNT``): a count is at most ``MAX_ADAPTER``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .pallas_kernels import (INSERT_COUNT, MAX_SCAN_WIDTH, N_CODE, _check,
@@ -30,6 +32,7 @@ from .pallas_kernels import (INSERT_COUNT, MAX_SCAN_WIDTH, N_CODE, _check,
                              insert_scan_into)
 
 MAX_ADAPTER = 64   # the kernels carry at most this many adapter bases
+ADAPTER_COUNT = torch.uint8  # the adapter scans' counts: at most MAX_ADAPTER
 
 
 def _adapter(name: str, adapter: bytes) -> bytes:
@@ -71,8 +74,8 @@ def _evidence_plain(al, inb, adapter, cap_by_o, m, mm):
         s = lo - i + P
         eff = ok[:, s: s + w]
         eq = al[:, s: s + w] == c
-        m[:, lo:] += (eff & eq).to(torch.int32)
-        mm[:, lo:] += (eff & ~eq).to(torch.int32)
+        m[:, lo:] += (eff & eq).to(m.dtype)
+        mm[:, lo:] += (eff & ~eq).to(mm.dtype)
 
 
 def adapter_evidence_plain(read1, read2, len1, len2, a1, a2, m1, mm1, m2, mm2):
@@ -103,7 +106,7 @@ def adapter_evidence_into(read1: torch.Tensor, read2: torch.Tensor,
     starting at ``len2 - o`` is compared on read 1 with ``a1`` (positions
     below ``len1``) and on read 2 with ``a2`` (positions below ``len2``, and
     only its first ``o`` bases). Writes ``m1, mm1, m2, mm2`` (``[B, L]``
-    int32).
+    ``ADAPTER_COUNT``; the plain version writes the outputs' dtype).
 
     ``read1``/``read2`` are ``[B, L]`` uint8 ASCII, ``len1``/``len2`` ``[B]``
     int32, ``a1``/``a2`` adapter windows of equal length."""
@@ -121,7 +124,7 @@ def adapter_evidence_into(read1: torch.Tensor, read2: torch.Tensor,
     _check("len1", len1, torch.int32, (B,))
     _check("len2", len2, torch.int32, (B,))
     for name, t in (("m1", m1), ("mm1", mm1), ("m2", m2), ("mm2", mm2)):
-        _check(name, t, torch.int32, (B, L))
+        _check(name, t, ADAPTER_COUNT, (B, L))
     if B == 0 or L == 0:
         return
     rc = _lib().ngs_adapter_evidence(
@@ -153,8 +156,8 @@ def adapter_scan_plain(read, length, adapter, matches, mismatches):
         w = L - i
         eff = ok[:, i:]
         eq = read[:, i:] == c
-        matches[:, :w] += (eff & eq).to(torch.int32)
-        mismatches[:, :w] += (eff & ~eq).to(torch.int32)
+        matches[:, :w] += (eff & eq).to(matches.dtype)
+        mismatches[:, :w] += (eff & ~eq).to(mismatches.dtype)
 
 
 def adapter_scan_into(read: torch.Tensor, length: torch.Tensor,
@@ -164,7 +167,8 @@ def adapter_scan_into(read: torch.Tensor, length: torch.Tensor,
     counterpart of the XLA ``adapter_scan``: for each offset o compares
     ``read[o + i]`` with ``adapter[i]`` for ``i < len(adapter)`` and
     ``o + i < length``. Writes ``matches``/``mismatches`` (``[B, L]``
-    int32). ``read`` is ``[B, L]`` uint8 ASCII, ``length`` ``[B]`` int32."""
+    ``ADAPTER_COUNT``; the plain version writes the outputs' dtype).
+    ``read`` is ``[B, L]`` uint8 ASCII, ``length`` ``[B]`` int32."""
     adapter = _adapter("adapter", adapter)
     if _route(read, length, matches, mismatches) == "cpu":
         return adapter_scan_plain(read, length, adapter, matches, mismatches)
@@ -173,8 +177,8 @@ def adapter_scan_into(read: torch.Tensor, length: torch.Tensor,
         raise ValueError(f"adapter_scan: L={L} exceeds {MAX_SCAN_WIDTH}")
     _check("read", read, torch.uint8, (B, L))
     _check("length", length, torch.int32, (B,))
-    _check("matches", matches, torch.int32, (B, L))
-    _check("mismatches", mismatches, torch.int32, (B, L))
+    _check("matches", matches, ADAPTER_COUNT, (B, L))
+    _check("mismatches", mismatches, ADAPTER_COUNT, (B, L))
     if B == 0 or L == 0:
         return
     rc = _lib().ngs_adapter_scan(_ptr(read), _ptr(length), B, L, adapter,
@@ -192,7 +196,7 @@ adapter_scan_into.launches = 0
 # --------------------------------------------------------------------------
 
 def _outputs(like: torch.Tensor, n: int):
-    return [torch.empty(like.shape, dtype=torch.int32, device=like.device)
+    return [torch.empty(like.shape, dtype=ADAPTER_COUNT, device=like.device)
             for _ in range(n)]
 
 
@@ -212,19 +216,19 @@ def insert_scan(seq1: torch.Tensor, seq2rc: torch.Tensor,
 
 
 def adapter_evidence(read1, read2, len1, len2, a1: bytes, a2: bytes):
-    """Returns (m1, mm1, m2, mm2), ``[B, L]`` int32; see
-    ``adapter_evidence_into``."""
+    """Returns (m1, mm1, m2, mm2), ``[B, L]`` int32 as the JAX package's:
+    the one-byte counts of ``adapter_evidence_into``, widened."""
     out = _outputs(read1, 4)
     adapter_evidence_into(read1, read2, len1, len2, a1, a2, *out)
-    return tuple(out)
+    return tuple(t.to(torch.int32) for t in out)
 
 
 def adapter_scan(read, length, adapter: bytes):
-    """Returns (matches, mismatches), ``[B, L]`` int32; see
-    ``adapter_scan_into``."""
+    """Returns (matches, mismatches), ``[B, L]`` int32 as the JAX
+    package's: the one-byte counts of ``adapter_scan_into``, widened."""
     m, mm = _outputs(read, 2)
     adapter_scan_into(read, length, adapter, m, mm)
-    return m, mm
+    return m.to(torch.int32), mm.to(torch.int32)
 
 
 # --------------------------------------------------------------------------
@@ -288,6 +292,41 @@ def _below_ratio(k, tot, match_perc):
 def _lookup(table, tot, k):
     """``table[tot, k]`` elementwise."""
     return table.reshape(-1)[tot * table.shape[1] + k]
+
+
+def decide_thresholds(table: torch.Tensor, match_perc: float,
+                      mep: float) -> torch.Tensor:
+    """``[2, T]`` int32 on the table's device: for each total ``tot`` of
+    matches and mismatches, the least ``m`` from which on every ``m`` passes
+    the decisions' per-offset test, ``T`` where none does. Row 0 is the
+    insert match's test (``tot > 0``, the ratio test and ``table[tot, m] <=
+    mep``), row 1 the adapter match's (``tot == 0`` passes the ratio test).
+    Built on the host with the float64 expressions of the plain version; the
+    kernel then tests ``m >= need[tot]``, with no division and no table
+    lookup. The caller builds them once per table and parameters and
+    passes them to ``seqpurge_decide_into``.
+
+    For a fixed ``tot`` both tests are monotone in ``m``: the ratio is an
+    exact product and one rounded division, and each table row is a
+    reversed cumulative sum of non-negative terms, capped at 1. That is
+    checked here, not assumed: a table whose rows break it raises
+    ``ValueError``."""
+    tab = table.detach().cpu().numpy()
+    T = tab.shape[0]
+    tot, m = np.arange(T)[:, None], np.arange(T)[None, :]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ratio_ok = ~((tot > 0) & (100.0 * m / np.maximum(tot, 1) < match_perc))
+    tail_ok = tab <= mep
+    need = []
+    for ok in ((tot > 0) & ratio_ok & tail_ok, ratio_ok & tail_ok):
+        rev = ok[:, ::-1]
+        passing = np.where(rev.all(1), T, rev.argmin(1))  # the passing tail's length
+        row = T - passing
+        if not np.array_equal(ok, m >= row[:, None]):
+            raise ValueError("decide_thresholds: a table row is not monotone in "
+                             "the matches; the per-offset test has no threshold")
+        need.append(row)
+    return torch.from_numpy(np.stack(need).astype(np.int32)).to(table.device)
 
 
 def insert_offsets_plain(scans, ins, lens, table, match_perc, mep):
@@ -445,8 +484,8 @@ def seqpurge_decide_plain(scans, ins, bases, quals, lens, table, out, acc, *,
 
 def seqpurge_decide_into(scans: torch.Tensor, ins: torch.Tensor,
                          bases: torch.Tensor, quals: torch.Tensor,
-                         lens: torch.Tensor,
-                         table: torch.Tensor, out: torch.Tensor,
+                         lens: torch.Tensor, table: torch.Tensor,
+                         need: torch.Tensor, out: torch.Tensor,
                          acc: torch.Tensor, *, match_perc: float, mep: float,
                          qcut: int, qwin: int, qoff: int, ncut: int,
                          ec: bool) -> None:
@@ -457,18 +496,23 @@ def seqpurge_decide_into(scans: torch.Tensor, ins: torch.Tensor,
     ``ec`` error correction of the insert pairs, the adapter match of the
     others, quality and N trimming, and the statistics.
 
-    ``scans`` is ``[8, B, L]`` int32, the adapter scans' outputs in this
-    order: the four adapter evidence counts, the adapter-prefix matches and
-    mismatches of read 1 and of read 2; ``ins`` is ``[2, B, L]`` int16, K2's
-    insert matches and mismatches.
+    ``scans`` is ``[8, B, L]`` ``ADAPTER_COUNT``, the adapter scans'
+    outputs in this order: the four adapter evidence counts, the
+    adapter-prefix matches and mismatches of read 1 and of read 2; ``ins``
+    is ``[2, B, L]`` int16, K2's insert matches and mismatches.
     ``bases``/``quals`` are ``[2, B, L]`` uint8 ASCII (read 1, read 2;
-    corrected in place with ``ec``; bytes past a read's length are never
-    read), ``lens`` ``[2, B]`` int32 in [0, L], ``table`` the ``[T, T]``
+    corrected in place with ``ec``; bytes past a read's length decide
+    nothing), ``lens`` ``[2, B]`` int32 in [0, L], ``table`` the ``[T, T]``
     float64 binomial tail of ``core/basicstats.py::match_probability_table``
-    with T >= L and T > ``MAX_ADAPTER``. Writes ``out [3, B]`` int32 (the
-    insert offset or -1, the new length of read 1, of read 2) and adds into
-    ``acc [ACC_SIZE]`` int64 (``acc_fields``). The float64 comparisons are
-    the host's, operation for operation, so every decision is the same."""
+    with T >= L and T > ``MAX_ADAPTER``, ``need`` its ``[2, T]`` int32
+    thresholds (``decide_thresholds`` of the same table and ``match_perc``,
+    ``mep``; the kernel's tests, which the plain version does not read).
+    Writes ``out [3, B]`` int32 (the insert offset or -1, the new length
+    of read 1, of read 2) and adds into ``acc [ACC_SIZE]`` int64
+    (``acc_fields``). The plain version makes the host's float64
+    comparisons, operation for operation; the kernel tests each offset
+    against ``need``, built from the same comparisons, and looks the table
+    up where it needs a p-value, so every decision is the same."""
     _, B, L = scans.shape
     T = table.shape[0]
     if table.dim() != 2 or table.shape[1] != T or T < max(L, MAX_ADAPTER + 1):
@@ -476,22 +520,26 @@ def seqpurge_decide_into(scans: torch.Tensor, ins: torch.Tensor,
                          f"with T >= {max(L, MAX_ADAPTER + 1)}")
     params = dict(match_perc=float(match_perc), mep=float(mep), qcut=int(qcut),
                   qwin=int(qwin), qoff=int(qoff), ncut=int(ncut), ec=bool(ec))
-    if _route(scans, ins, bases, quals, lens, table, out, acc) == "cpu":
+    if tuple(need.shape) != (2, T):
+        raise ValueError(f"need: shape {tuple(need.shape)}, needs [2, {T}] "
+                         "(decide_thresholds of the table)")
+    if _route(scans, ins, bases, quals, lens, table, need, out, acc) == "cpu":
         return seqpurge_decide_plain(scans, ins, bases, quals, lens, table, out,
                                      acc, **params)
-    _check("scans", scans, torch.int32, (SCAN_ROWS, B, L))
+    _check("scans", scans, ADAPTER_COUNT, (SCAN_ROWS, B, L))
     _check("ins", ins, INSERT_COUNT, (2, B, L))
     _check("bases", bases, torch.uint8, (2, B, L))
     _check("quals", quals, torch.uint8, (2, B, L))
     _check("lens", lens, torch.int32, (2, B))
     _check("table", table, torch.float64, (T, T))
+    _check("need", need, torch.int32, (2, T))
     _check("out", out, torch.int32, (3, B))
     _check("acc", acc, torch.int64, (ACC_SIZE,))
     if B == 0:
         return
     rc = _lib().ngs_seqpurge_decide(
-        _ptr(scans), _ptr(ins), _ptr(bases), _ptr(quals), _ptr(lens), _ptr(table),
-        T, B, L,
+        _ptr(scans), _ptr(ins), _ptr(bases), _ptr(quals), _ptr(lens), _ptr(need),
+        _ptr(table), T, B, L,
         params["match_perc"], params["mep"], params["qcut"], params["qwin"],
         params["qoff"], params["ncut"], int(params["ec"]), _ptr(out), _ptr(acc),
         ACC_SIZE, _stream(scans))

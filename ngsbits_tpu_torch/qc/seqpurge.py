@@ -10,12 +10,13 @@ width L, and their lengths into one pinned buffer, and one copy takes them to
 the device. There the reverse complement of read 2 is gathered through a
 complement table, the three scans fill ``[B, L]`` counts (the insert match
 two int16, the adapter evidence at each candidate insert and the adapter
-prefix on each mate eight int32), and one launch of ``seqpurge_decide``
+prefix on each mate eight one-byte), and one launch of ``seqpurge_decide``
 turns them into each pair's insert offset and new lengths, corrects the
 reads with -ec, and adds the batch's statistics into int64 accumulators.
-Every p-value comparison is a float64 lookup into the exact binomial-tail
-table (core/basicstats.py), made as the host makes it, so decisions are
-bit-identical to the JAX package's.
+Every p-value comparison is made against the exact binomial-tail table
+(core/basicstats.py) in float64, as the host makes it, or against integer
+thresholds built from those comparisons, so decisions are bit-identical to
+the JAX package's.
 One copy brings back the per-pair results and the accumulators (with -ec also
 the corrected reads); no count array leaves the device. There is no host-only
 route: everything runs on the device the engine was given (on the CPU the
@@ -35,9 +36,9 @@ from ..core.basicstats import match_probability_table
 from ..io import native
 from ..io.fastq import FastqBatch
 from ..ops.pallas_kernels import INSERT_COUNT, insert_scan_into
-from ..ops.seqpurge import (ACC_SIZE, COUNTERS, MAXLEN, SCAN_ROWS, acc_fields,
-                            adapter_evidence_into, adapter_scan_into,
-                            complement_table, seqpurge_decide_into)
+from ..ops.seqpurge import (ACC_SIZE, ADAPTER_COUNT, COUNTERS, MAXLEN, SCAN_ROWS,
+                            acc_fields, adapter_evidence_into, adapter_scan_into,
+                            complement_table, decide_thresholds, seqpurge_decide_into)
 from ..utils.backend import device as default_device
 from .read_stats import FORWARD, REVERSE, ReadStatistics
 
@@ -109,6 +110,7 @@ class SeqPurgeEngine:
         self.qc = qc
         self.device = default_device() if device is None else torch.device(device)
         self.table = torch.from_numpy(match_probability_table(0.25, MAXLEN)).to(self.device)
+        self.need = decide_thresholds(self.table, params.match_perc, params.mep)
         self._complement = complement_table(self.device)
         self._decide = dict(match_perc=params.match_perc, mep=params.mep,
                             qcut=params.qcut, qwin=params.qwin, qoff=params.qoff,
@@ -221,7 +223,7 @@ class SeqPurgeEngine:
             marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
             marks[0].record()
         ins = torch.empty((2, B, L), dtype=INSERT_COUNT, device=self.device)
-        scans = torch.empty((SCAN_ROWS, B, L), dtype=torch.int32, device=self.device)
+        scans = torch.empty((SCAN_ROWS, B, L), dtype=ADAPTER_COUNT, device=self.device)
         insert_scan_into(seq1, seq2rc, min_len, ins[0], ins[1])
         adapter_evidence_into(seq1, read2, d_len1, d_len2,
                               p.a1[:p.adapter_overlap], p.a2[:p.adapter_overlap],
@@ -233,7 +235,7 @@ class SeqPurgeEngine:
             marks[1].record()
         dev["acc"].zero_()
         seqpurge_decide_into(scans, ins, dev["reads"][:2], dev["reads"][2:], dev["lens"],
-                             self.table, dev["out"], dev["acc"], **self._decide)
+                             self.table, self.need, dev["out"], dev["acc"], **self._decide)
         if on_card:
             marks[2].record()
         t4 = time.perf_counter()

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""SeqPurge's scans beside variants of themselves, timed on the card: the
-adapter scans (``adapter_evidence``, ``adapter_scan``) or K2
-(``insert_scan``).
+"""SeqPurge's kernels beside variants of themselves, timed on the card: the
+adapter scans (``adapter_evidence``, ``adapter_scan``), K2
+(``insert_scan``) or D, the decisions (``seqpurge_decide``).
 
-    python3 scripts/scan_variants.py [--kernel adapters|insert] [--parent DIR]
+    python3 scripts/scan_variants.py [--kernel adapters|insert|decide] [--parent DIR]
 
-Builds variants of ``ngsbits_tpu_torch/csrc/seqpurge.cu`` under
-build/scan_variants/ (one nvcc per variant, all at once), each a copy of the
-source with checked text substitutions, and times the kernels at the main
-path's batch: B=10000 pairs, L=151, the pairs of ``ops/selfcheck.py::pairs``;
-for the adapter scans the TruSeq adapters, a window of 10 bases (evidence)
-and a prefix of 20 (scan).
+Builds variants of ``ngsbits_tpu_torch/csrc/seqpurge.cu`` (the scans) or
+``csrc/seqpurge_decide.cu`` (D) under build/scan_variants/ (one nvcc per
+variant, all at once), each a copy of the source with checked text
+substitutions, and times the kernels at the main path's batch: B=10000
+pairs, L=151; for the scans the pairs of ``ops/selfcheck.py::pairs``, the
+TruSeq adapters, a window of 10 bases (evidence) and a prefix of 20 (scan);
+for D ``selfcheck.decide_case`` (a library with adapters, its scans'
+counts and qualities), without and with -ec.
 
 ``--kernel adapters`` (the default). Design variants (outputs held equal to
 the plain version first):
@@ -23,9 +25,9 @@ the plain version first):
   run-time words the kernels for other windows: a run-time word count and,
                  for adapter_scan, no prefix counts (as built: the
                  template's 3 and 5 words)
-  4 per thread   a thread owns four consecutive items and writes 16-byte
-                 stores (tiles of a multiple of four rows, so every tile's
-                 outputs start 16-byte aligned)
+  4 per thread   a thread owns four consecutive items and writes 4-byte
+                 stores of four one-byte counts (tiles of a multiple of
+                 four rows, so every tile's outputs start 4-byte aligned)
   8 blocks/SM    __launch_bounds__ for 8 blocks of 256 threads (32
                  registers; as built: 4 blocks, up to 64)
   2 blocks/SM, 4 blocks/SM   grids of at most 2 or 4 blocks per SM, so a
@@ -68,15 +70,51 @@ only keeps the tiles' copies and the zeros past short overlaps), and:
   m by xor       a logic operation in place of the matches' __dp4a
   adds for dp4a  an addition in place of each __dp4a
 
+``--kernel decide``: D. Design variants (outputs, accumulators and
+corrected reads held equal to the plain version first):
+
+  as built          the source unchanged
+  float64 tests     the per-offset ratio test and table lookup at every
+                    offset examined (as built: m against the least passing
+                    m for its total, from shared memory)
+  unstaged          every row read where it lies in device memory (as
+                    built: each pair's rows staged by cp.async, the next
+                    pair's copies in flight while one is decided)
+  adapters unstaged the adapter-prefix counts read where they lie, only
+                    for pairs without an insert (as built: staged with the
+                    rest)
+  no prefetch       each pair's copies waited for as soon as they are
+                    issued (as built: the next pair's overlap this one)
+  grid 2/SM, grid 3/SM   blocks an SM (as built: 4, the first version's
+                    cap, now resident at once)
+  16 warps          warps a block, 2 blocks an SM (as built: 8)
+  window of 5       the quality window's length a constant 5, the main
+                    path's (as built: qwin, a parameter)
+
+Ablations (outputs wrong, not checked):
+
+  stage only     the copies in, no decisions
+  no insert scan no offset of the insert match examined
+  no adapter match   no adapter-prefix search
+  no flush       no int64 atomics of the block's counters at the end
+  no trims       no quality and no N trim
+  no N trim      no N trim
+  no decisions   no insert scan, no adapter match, no trims: the staging,
+                 the per-pair results and the statistics remain
+  empty          every block returns at once
+
 Yardstick, not a scan: ``zero_``, PyTorch's ``zero_()`` of the kernel's
-output tensors (the same bytes written, one launch per output).
+output tensors (the same bytes written, one launch per output; not for D).
 
 Times: device time of 10 calls captured in a CUDA graph (L2-warm) and one
 call after a 128 MB overwrite and read (cold), as chip_smoke.py times
-kernels. With ``--parent DIR`` (a checkout of another commit), that
-commit's seqpurge.cu is built and timed too, its K2 with int32 outputs (as
-K2 wrote them before its int16 counts). Prints one line per variant and
-kernel and, last, one JSON line with every result. Needs a CUDA device.
+kernels. D with -ec finds the reads corrected by its first call on every
+later one. With ``--parent DIR`` (a checkout of another commit), that
+commit's source is built and timed too, with the output types it writes
+(int32 adapter counts before their one-byte counts, int32 K2 counts before
+int16) and, for D, its own arguments (int32 adapter counts, no thresholds
+before them). Prints one line per variant and kernel and, last, one JSON
+line with every result. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -152,9 +190,9 @@ def _quad(counts: str, stores: str, body: str,
                    for c, t, _, _ in pairs)
     vec, one = "", ""
     for c, t, mo, mmo in pairs:
-        vec += (f"                *reinterpret_cast<int4*>({mo} + out0 + i4) = "
-                f"make_int4({c}[0], {c}[1], {c}[2], {c}[3]);\n"
-                f"                *reinterpret_cast<int4*>({mmo} + out0 + i4) = make_int4("
+        vec += (f"                *reinterpret_cast<uchar4*>({mo} + out0 + i4) = "
+                f"make_uchar4({c}[0], {c}[1], {c}[2], {c}[3]);\n"
+                f"                *reinterpret_cast<uchar4*>({mmo} + out0 + i4) = make_uchar4("
                 f"{t}[0] - {c}[0], {t}[1] - {c}[1], {t}[2] - {c}[2], {t}[3] - {c}[3]);\n")
         one += (f"                    if (i4 + j < n) {mo}[out0 + i4 + j] = {c}[j];\n"
                 f"                    if (i4 + j < n) {mmo}[out0 + i4 + j] = {t}[j] - {c}[j];\n")
@@ -197,7 +235,7 @@ _QUAD = [
     _quad(_SC_COUNTS, _SC_STORES, _SC_QUAD, [("m", "t", "matches", "mismatches")]),
     ("    if (r > kTileSmem / row_bytes) r = kTileSmem / row_bytes;\n",
      "    if (r > kTileSmem / row_bytes) r = kTileSmem / row_bytes;\n"
-     "    if (r >= 4) r &= ~3;  // every tile's outputs start 16-byte aligned\n"),
+     "    if (r >= 4) r &= ~3;  // every tile's outputs start 4-byte aligned\n"),
 ]
 
 # name: (substitutions, ablation)
@@ -282,12 +320,78 @@ INSERT_VARIANTS = {
                      (_IN_COMPARE, _IN_NO_COMPARE)], True),
     "empty": ([(_IN_HEAD, _IN_HEAD + "    if (B > 0) return;\n")], True),
 }
-VARIANTS = {"adapters": ADAPTER_VARIANTS, "insert": INSERT_VARIANTS}
-INT32_OUTPUTS = ("int32 stores", "parent")  # K2 variants whose outputs are int32
+_D_DECIDE = "        decide_pair(x, b, pair_rows<STAGED>(x, b, buf, l1, l2), t, p, lane, s_acc, out);\n"
+_D_FLUSH = "        if (s_acc[i]) atomicAdd(&acc[i], static_cast<unsigned long long>(s_acc[i]));\n"
+_D_RATIO = "__ddiv_rn(__dmul_rn(100.0, static_cast<double>(m)), static_cast<double>(tot))"
+_D_TAIL = "t.table[static_cast<long long>(tot) * t.T + m] <= p.mep"
+_D_HEAD = "    extern __shared__ __align__(16) uint8_t smem[];\n"
+_D_FIRST_HITS = "        first_hits(r, l1, l2, t, lane, off_f, off_r);\n"
 
 
-def _variant_source(subs: list[tuple[str, str]]) -> str:
-    text = (_build.CSRC / "seqpurge.cu").read_text()
+def _d_float64_tests() -> list[tuple[str, str]]:
+    """The per-offset float64 tests in place of the thresholds: both tests
+    rewritten whole, with the parameters they need, and every caller passes
+    them."""
+    subs = []
+    for name, row, test in (
+            ("insert", "need_ins", f"tot > 0 && !({_D_RATIO} < p.match_perc)"),
+            ("adapter", "need_ad", f"!(tot > 0 && {_D_RATIO} < p.match_perc)")):
+        head = f"__device__ __forceinline__ bool {name}_passes(int m, int tot, const Tests& t"
+        subs.append((f"{head}) {{\n    return m >= t.{row}[tot];\n",
+                     f"{head}, const Params& p) {{\n    return {test} && {_D_TAIL};\n"))
+    for call in ("adapter_passes(m, m + r.amm1[o], t", "adapter_passes(m, m + r.amm2[o], t",
+                 "insert_passes(m, m + r.mm_ins[o], t"):
+        subs.append((call + ")", call + ", p)"))
+    subs.append(("const Tests& t,\n                                           int lane, int& off_f",
+                 "const Tests& t,\n                                           const Params& p, "
+                 "int lane, int& off_f"))
+    subs.append((_D_FIRST_HITS, _D_FIRST_HITS.replace("t, lane", "t, p, lane")))
+    return subs
+
+
+DECIDE_VARIANTS = {
+    "as built": ([], False),
+    "float64 tests": (_d_float64_tests(), False),
+    "unstaged": ([("    const int stage = 2 * kWarps * per <= kStageLimit ? per : 0;",
+                   "    const int stage = 0 * per;")], False),
+    "adapters unstaged": ([("    const unsigned bytes = lane < kSpans && x.L ?",
+                            "    const unsigned bytes = lane < kSpans && (lane < 2 || lane >= 6) && x.L ?"),
+                           ("        p[j] = STAGED ? buf + span_slot",
+                            "        p[j] = STAGED && (j < 2 || j >= 6) ? buf + span_slot")], False),
+    "no prefetch": ([("                stage_pair(x, nb, next, bar_next, lane);\n",
+                      "                stage_pair(x, nb, next, bar_next, lane);\n"
+                      "                while (!mbar_try_wait(bar_next, phase_next)) {\n"
+                      "                }\n")], False),
+    "grid 2/SM": ([("constexpr int kBlocksPerSM = 4;", "constexpr int kBlocksPerSM = 2;")], False),
+    "grid 3/SM": ([("constexpr int kBlocksPerSM = 4;", "constexpr int kBlocksPerSM = 3;")], False),
+    "16 warps": ([("constexpr int kWarps = 8;", "constexpr int kWarps = 16;"),
+                  ("constexpr int kBlocksPerSM = 4;", "constexpr int kBlocksPerSM = 2;")], False),
+    "stage only": ([(_D_DECIDE, "        ;\n")], True),
+    "no insert scan": ([("    for (int o0 = 1; o0 < ml; o0 += 32 * 32) {\n",
+                         "    for (int o0 = 1; o0 < 0 * ml; o0 += 32 * 32) {\n")], True),
+    "no adapter match": ([(_D_FIRST_HITS, "        off_f = off_r = -1;\n")], True),
+    "no flush": ([(_D_FLUSH, "        ;\n")], True),
+    "no trims": ([("    if (p.qcut > 0) {\n", "    if (false) {\n"),
+                  ("    if (p.ncut > 0) {\n", "    if (false) {\n")], True),
+    "no N trim": ([("    if (p.ncut > 0) {\n", "    if (false) {\n")], True),
+    "no decisions": ([("    for (int o0 = 1; o0 < ml; o0 += 32 * 32) {\n",
+                       "    for (int o0 = 1; o0 < 0 * ml; o0 += 32 * 32) {\n"),
+                      (_D_FIRST_HITS, "        off_f = off_r = -1;\n"),
+                      ("    if (p.qcut > 0) {\n", "    if (false) {\n"),
+                      ("    if (p.ncut > 0) {\n", "    if (false) {\n")], True),
+    "window of 5": ([("            for (int j = 0; j < p.qwin; ++j) sum += q[i + j];\n",
+                      "            for (int j = 0; j < 5; ++j) sum += q[i + j];\n")], False),
+    "empty": ([(_D_HEAD, _D_HEAD + "    if (x.B > 0) return;\n")], True),
+}
+
+# --kernel: (source, variants, the kernels whose ptxas lines to print)
+FAMILIES = {"adapters": ("seqpurge.cu", ADAPTER_VARIANTS, "adapter"),
+            "insert": ("seqpurge.cu", INSERT_VARIANTS, "insert_scan"),
+            "decide": ("seqpurge_decide.cu", DECIDE_VARIANTS, "seqpurge_decide")}
+
+
+def _variant_source(source: str, subs: list[tuple[str, str]]) -> str:
+    text = (_build.CSRC / source).read_text()
     for old, new in subs:
         if text.count(old) != 1:
             raise RuntimeError(f"substitution anchor not found once: {old!r}")
@@ -295,25 +399,26 @@ def _variant_source(subs: list[tuple[str, str]]) -> str:
     return text
 
 
-def _build_all(variants: dict, parent: Path | None,
-               entry: str) -> dict[str, ctypes.CDLL]:
+def _build_all(source: str, variants: dict, parent: Path | None,
+               entry: str) -> dict[str, tuple[ctypes.CDLL, str]]:
     """One library per variant (and the parent's), nvcc all at once; prints
-    ptxas's lines for the kernels whose names hold ``entry``."""
+    ptxas's lines for the kernels whose names hold ``entry``. Returns name:
+    (library, its source text)."""
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "launch.cuh").write_text((_build.CSRC / "launch.cuh").read_text())
     sources = {}
     for i, (name, (subs, _)) in enumerate(variants.items()):
         sources[name] = OUT / f"variant{i}.cu"
-        sources[name].write_text(_variant_source(subs))
+        sources[name].write_text(_variant_source(source, subs))
     if parent is not None:
-        sources["parent"] = parent / "ngsbits_tpu_torch" / "csrc" / "seqpurge.cu"
+        sources["parent"] = parent / "ngsbits_tpu_torch" / "csrc" / source
     libs = {name: OUT / f"variant{i}.so" for i, name in enumerate(sources)}
     procs = {name: subprocess.Popen(
         [_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", "-o", str(libs[name]),
          str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for name, src in sources.items()}
     loaded = {}
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for name, proc in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
@@ -322,83 +427,144 @@ def _build_all(variants: dict, parent: Path | None,
         for line in log.splitlines():
             if "Compiling entry" in line:
                 shown = entry in line
-            if shown and ("registers" in line or "stack" in line):
+            if shown and ("registers" in line or "stack" in line or "smem" in line):
                 print(f"  [{name}] {line.strip()}")
         lib = ctypes.CDLL(str(libs[name]))
-        lib.ngs_adapter_evidence.argtypes = [p, p, p, p, i, i, p, i, p, i, p, p, p, p, p]
-        lib.ngs_adapter_scan.argtypes = [p, p, i, i, p, i, p, p, p]
-        lib.ngs_insert_scan.argtypes = [p, p, p, i, i, p, p, p]
-        for fn in (lib.ngs_adapter_evidence, lib.ngs_adapter_scan, lib.ngs_insert_scan):
+        text = sources[name].read_text()
+        if source == "seqpurge.cu":
+            lib.ngs_adapter_evidence.argtypes = [p, p, p, p, i, i, p, i, p, i, p, p, p, p, p]
+            lib.ngs_adapter_scan.argtypes = [p, p, i, i, p, i, p, p, p]
+            lib.ngs_insert_scan.argtypes = [p, p, p, i, i, p, p, p]
+            fns = (lib.ngs_adapter_evidence, lib.ngs_adapter_scan, lib.ngs_insert_scan)
+        else:  # D, with the thresholds' pointer where that source takes it
+            ptrs = 7 if _thresholds(text) else 6
+            lib.ngs_seqpurge_decide.argtypes = [p] * ptrs + [i, i, i, d, d, i, i, i, i, i,
+                                                             p, p, i, p]
+            fns = (lib.ngs_seqpurge_decide,)
+        for fn in fns:
             fn.restype = ctypes.c_int
-        loaded[name] = lib
+        loaded[name] = (lib, text)
     return loaded
+
+
+def _thresholds(decide_source: str) -> bool:
+    """True where D takes the thresholds and one-byte adapter counts."""
+    return "const void* need" in decide_source
+
+
+def _out_dtype(family: str, text: str) -> torch.dtype:
+    """The scans' output type of a variant or of the parent, from its source."""
+    if family == "insert":
+        return (selfcheck.pk.INSERT_COUNT if "using Count = int16_t;" in text
+                else torch.int32)
+    return selfcheck.sp.ADAPTER_COUNT if "using AdapterCount" in text else torch.int32
 
 
 def _ptrs(*ts):
     return [ctypes.c_void_p(t.data_ptr()) for t in ts]
 
 
-def _kernels(family: str, dev: torch.device) -> dict:
-    """name: (bytes needed, plain version into outputs, outputs, launch on a
-    library into outputs)."""
+def _stream():  # the current one, which a CUDA graph's capture replaces
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _scan_kernels(family: str, dev: torch.device) -> dict:
+    """name: (bytes needed, fresh outputs for a library's source, plain
+    version into outputs, launch on a library into outputs)."""
     read1, read2, seq2rc, len1, len2, min_len = (
         torch.from_numpy(a).to(dev) for a in selfcheck.pairs(B, L, seed=B))
 
-    def stream():  # the current one, which a CUDA graph's capture replaces
-        return torch.cuda.current_stream().cuda_stream
+    def fresh(n):
+        return lambda text: [torch.empty((B, L), dtype=_out_dtype(family, text),
+                                         device=dev) for _ in range(n)]
 
     if family == "insert":
         return {"insert_scan": (
-            2 * B * L + 4 * B + 4 * B * L,
-            lambda out: selfcheck.pk.insert_scan_plain(read1, seq2rc, min_len, *out), 2,
+            2 * B * L + 4 * B + 4 * B * L, fresh(2),
+            lambda out: selfcheck.pk.insert_scan_plain(read1, seq2rc, min_len, *out),
             lambda lib, out: lib.ngs_insert_scan(*_ptrs(read1, seq2rc, min_len), B, L,
-                                                 *_ptrs(*out), stream()))}
+                                                 *_ptrs(*out), _stream()))}
     w1, w2, ad = A1[:OVERLAP], A2[:OVERLAP], A1[:A_SIZE]
     return {
         "adapter_evidence": (
-            2 * B * L + 8 * B + 16 * B * L,
+            2 * B * L + 8 * B + 4 * B * L, fresh(4),
             lambda out: selfcheck.sp.adapter_evidence_plain(read1, read2, len1, len2,
-                                                            w1, w2, *out), 4,
+                                                            w1, w2, *out),
             lambda lib, out: lib.ngs_adapter_evidence(
                 *_ptrs(read1, read2, len1, len2), B, L, w1, len(w1), w2, len(w2),
-                *_ptrs(*out), stream())),
+                *_ptrs(*out), _stream())),
         "adapter_scan": (
-            B * L + 4 * B + 8 * B * L,
-            lambda out: selfcheck.sp.adapter_scan_plain(read1, len1, ad, *out), 2,
+            B * L + 4 * B + 2 * B * L, fresh(2),
+            lambda out: selfcheck.sp.adapter_scan_plain(read1, len1, ad, *out),
             lambda lib, out: lib.ngs_adapter_scan(*_ptrs(read1, len1), B, L, ad, len(ad),
-                                                  *_ptrs(*out), stream())),
+                                                  *_ptrs(*out), _stream())),
     }
+
+
+def _decide_kernels(dev: torch.device) -> dict:
+    """D without and with -ec, as ``_scan_kernels``: outputs are the
+    results, the accumulators and the reads it corrects, fresh copies."""
+    kernels = {}
+    for ec in (False, True):
+        case = selfcheck.decide_case(B, L, dev, A1, A2, ec=ec, seed=B + L)
+        scans, ins, bases, quals, lens, table, need, params = case.inputs
+        scans32 = scans.to(torch.int32)
+        T = table.shape[0]
+
+        def fresh(text, bases=bases, quals=quals):
+            return [torch.empty((3, B), dtype=torch.int32, device=dev),
+                    torch.zeros(selfcheck.sp.ACC_SIZE, dtype=torch.int64, device=dev),
+                    bases.clone(), quals.clone()]
+
+        def plain(out, c=(scans, ins, lens, table, params)):
+            scans_, ins_, lens_, table_, params_ = c
+            selfcheck.sp.seqpurge_decide_plain(scans_, ins_, out[2], out[3], lens_, table_,
+                                               out[0], out[1], **params_)
+
+        def launch(lib, out, c=(scans, scans32, ins, lens, need, table, T, params)):
+            scans_, scans32_, ins_, lens_, need_, table_, T_, pr = c
+            lib_, text = lib
+            head = (_ptrs(scans_, ins_, out[2], out[3], lens_, need_, table_)
+                    if _thresholds(text) else
+                    _ptrs(scans32_, ins_, out[2], out[3], lens_, table_))
+            return lib_.ngs_seqpurge_decide(
+                *head, T_, B, L, pr["match_perc"], pr["mep"], pr["qcut"], pr["qwin"],
+                pr["qoff"], pr["ncut"], int(pr["ec"]), *_ptrs(out[0], out[1]),
+                selfcheck.sp.ACC_SIZE, _stream())
+
+        kernels["seqpurge_decide" + (" -ec" if ec else "")] = (case.bytes, fresh, plain,
+                                                               launch)
+    return kernels
 
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=sorted(VARIANTS), default="adapters",
-                    help="which scans to time beside their variants")
+    ap.add_argument("--kernel", choices=sorted(FAMILIES), default="adapters",
+                    help="which kernels to time beside their variants")
     ap.add_argument("--parent", type=Path,
-                    help="a checkout of another commit whose scans to time too")
+                    help="a checkout of another commit whose kernels to time too")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("scan_variants: no CUDA device available", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    variants = VARIANTS[args.kernel]
-    libs = _build_all(variants, args.parent,
-                      "insert_scan" if args.kernel == "insert" else "adapter")
-
-    def outputs(n, name=""):
-        dtype = torch.int32
-        if args.kernel == "insert" and name not in INT32_OUTPUTS:
-            dtype = selfcheck.pk.INSERT_COUNT
-        return [torch.empty((B, L), dtype=dtype, device=dev) for _ in range(n)]
+    source, variants, entry = FAMILIES[args.kernel]
+    libs = _build_all(source, variants, args.parent, entry)
+    decide = args.kernel == "decide"
+    kernels = _decide_kernels(dev) if decide else _scan_kernels(args.kernel, dev)
+    if not decide:  # the scans' launches take a library alone
+        kernels = {k: (n, fresh, plain, lambda lib, out, f=launch: f(lib[0], out))
+                   for k, (n, fresh, plain, launch) in kernels.items()}
 
     results = []
-    for kname, (nbytes, plain, n_out, launch) in _kernels(args.kernel, dev).items():
+    for kname, (nbytes, fresh, plain, launch) in kernels.items():
         bound_ms = nbytes / PEAK_BYTES * 1e3
-        want = outputs(n_out)
+        built = (_build.CSRC / source).read_text()
+        want = fresh(built)
         plain(want)
         calls = {}
         for name, lib in libs.items():
-            out = outputs(n_out, name)
+            out = fresh(lib[1])
 
             def call(lib=lib, out=out, name=name):
                 rc = launch(lib, out)
@@ -407,19 +573,20 @@ def main(argv: list[str] | None = None) -> int:
             call()
             torch.cuda.synchronize()
             if not variants.get(name, ([], False))[1] and not all(
-                    torch.equal(g.to(torch.int32), w.to(torch.int32))
+                    torch.equal(g.to(torch.int64), w.to(torch.int64))
                     for g, w in zip(out, want)):
-                print(f"{kname:16s} {name:14s} DIFFERS from the plain version: not timed")
+                print(f"{kname:20s} {name:17s} DIFFERS from the plain version: not timed")
                 results.append(dict(kernel=kname, variant=name, differs=True))
                 continue
             calls[name] = call
-        zeroed = outputs(n_out)
-        calls["zero_"] = lambda z=zeroed: [t.zero_() for t in z]
+        if not decide:
+            zeroed = fresh(built)
+            calls["zero_"] = lambda z=zeroed: [t.zero_() for t in z]
         for name, call in calls.items():
             ablation = name == "zero_" or variants.get(name, ([], False))[1]
             ms = selfcheck.device_ms(call)
             cold = selfcheck.cold_ms(call)
-            print(f"{kname:16s} {name:14s} device {ms:.4f} ms, cold {cold:.4f} ms, "
+            print(f"{kname:20s} {name:17s} device {ms:.4f} ms, cold {cold:.4f} ms, "
                   f"bound {bound_ms:.4f} ms ({bound_ms / cold:.1%} of it cold)"
                   + (" [ablation]" if ablation else ""), flush=True)
             results.append(dict(kernel=kname, variant=name, ablation=ablation, ms=ms,

@@ -8,10 +8,13 @@ without N and adapter prefixes of 15 and 20 bases, and the adapter scans at
 the edges of their design (L from 1 to 1000, windows of 1 to 64 bases, random
 bytes past the reads, all-N pairs), K2 at the edges of its contract (L from 1
 to 24,576, min_len below 0 and above L, bytes outside ACGTN, all-N pairs,
-random bytes past min_len), and SeqPurge's decisions at the
-main path's batch, ragged rows, single pairs and rows of 999 bases, with and
-without -ec. Integer outputs: the tolerance is exact equality. Skips where
-no CUDA device is available."""
+random bytes past min_len), and SeqPurge's decisions at the main path's
+batch, ragged rows, empty and two-base rows, single pairs, rows on either
+side of the widest the decisions stage in shared memory (497 bases
+staged, 498 read where they lie) and rows of 999 bases (read where they lie), with and without -ec,
+and at parameters off the defaults (no trims, N runs of 3 and 6, a window
+of one base, other match percentages and tails). Integer outputs: the
+tolerance is exact equality. Skips where no CUDA device is available."""
 
 import pytest
 import torch
@@ -233,7 +236,7 @@ def test_adapter_scans_refuse_rows_wider_than_shared_memory_takes():
     B, L = 2, pk.MAX_SCAN_WIDTH + 1
     read = torch.zeros((B, L), dtype=torch.uint8, device="cuda")
     n = torch.zeros(B, dtype=torch.int32, device="cuda")
-    out = [torch.empty((B, L), dtype=torch.int32, device="cuda") for _ in range(4)]
+    out = [torch.empty((B, L), dtype=sp.ADAPTER_COUNT, device="cuda") for _ in range(4)]
     before = [k.launches for k in (sp.adapter_evidence_into, sp.adapter_scan_into)]
     with pytest.raises(ValueError, match="exceeds"):
         sp.adapter_evidence_into(read, read, n, n, A1[:10], A2[:10], *out)
@@ -243,12 +246,34 @@ def test_adapter_scans_refuse_rows_wider_than_shared_memory_takes():
 
 
 @pytest.mark.gpu
+def test_adapter_scans_refuse_int32_outputs():
+    """The adapter scans write one-byte counts; int32 outputs are refused
+    before any launch, as K2 refuses them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ngsbits_tpu_torch.ops import seqpurge as sp
+    B, L = 2, 151
+    read = torch.zeros((B, L), dtype=torch.uint8, device="cuda")
+    n = torch.zeros(B, dtype=torch.int32, device="cuda")
+    out = [torch.empty((B, L), dtype=torch.int32, device="cuda") for _ in range(4)]
+    before = [k.launches for k in (sp.adapter_evidence_into, sp.adapter_scan_into)]
+    with pytest.raises(TypeError, match="dtype"):
+        sp.adapter_evidence_into(read, read, n, n, A1[:10], A2[:10], *out)
+    with pytest.raises(TypeError, match="dtype"):
+        sp.adapter_scan_into(read, n, A1[:20], *out[:2])
+    assert [k.launches for k in (sp.adapter_evidence_into, sp.adapter_scan_into)] == before
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dirty", [False, True])
 @pytest.mark.parametrize("ec", [False, True])
 @pytest.mark.parametrize("B,L,adapters", [
     (10000, 151, "default"), (1237, 250, "default"), (1237, 250, "with_n"),
-    (1, 151, "default"), (33, 151, "with_n"), (1, 999, "default"),
-    (33, 999, "default"), (500, 999, "with_n")])
+    (5, 0, "default"), (7, 2, "with_n"), (1, 151, "default"), (33, 151, "with_n"),
+    # a block's 16 staging buffers (two a warp) fill kStageLimit at L=497
+    (64, 497, "default"),
+    (64, 498, "with_n"), (1, 999, "default"), (33, 999, "default"),
+    (500, 999, "with_n"), (4000, 999, "default")])
 def test_seqpurge_decide_matches_plain_version(B, L, adapters, ec, dirty):
     """The decisions' kernel on the scans of a short-insert library with
     adapters (ties in p at 0.0 on the long rows, errors for -ec, N runs,
@@ -263,6 +288,28 @@ def test_seqpurge_decide_matches_plain_version(B, L, adapters, ec, dirty):
     case.plain()
     torch.cuda.synchronize()
     assert case.wrapper.launches == before + 1
+    assert selfcheck.max_abs_err(case) == 0
+
+
+# parameters off the defaults: no trims; N runs shorter than an aligned
+# word of four (the N trim's exact path alone); a window of one base; other
+# thresholds (the ratio test and the tail)
+OTHER_PARAMS = [dict(qcut=0, ncut=0), dict(ncut=3, qcut=30), dict(qwin=1, ncut=6),
+                dict(match_perc=66.7, mep=1e-3), dict(match_perc=100.0, mep=0.0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ec", [False, True])
+@pytest.mark.parametrize("params", OTHER_PARAMS, ids=lambda d: "-".join(
+    f"{k}={v}" for k, v in d.items()))
+def test_seqpurge_decide_matches_plain_version_with_other_parameters(params, ec):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    case = selfcheck.decide_case(2000, 151, torch.device("cuda"), *ADAPTERS["default"],
+                                 ec=ec, seed=len(params), dirty=True, **params)
+    case.kernel()
+    case.plain()
+    torch.cuda.synchronize()
     assert selfcheck.max_abs_err(case) == 0
 
 

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from ngsbits_tpu.core.basicstats import match_probability_table as jax_table
 from ngsbits_tpu.io.fastq import FastqBatch as JaxFastqBatch
 from ngsbits_tpu.qc.seqpurge import SeqPurgeEngine as JaxEngine
 from ngsbits_tpu.qc.seqpurge import SeqPurgeParams as JaxParams
@@ -103,10 +104,18 @@ KINDS = ("ties_wide_rows", "short_and_all_n", "qcut0_ncut0", "adapters_with_n")
 @pytest.mark.parametrize("route", ["native", "numpy"])
 @pytest.mark.parametrize("kind", KINDS)
 def test_decisions_match_jax_engine_at_the_edges(monkeypatch, kind, route, ec):
+    """The port's engine on the CPU, whose decisions take the adapter scans'
+    one-byte counts, against the JAX package's engine."""
     rng = np.random.default_rng(KINDS.index(kind))
     (a1, a2), extra, batches = _batches(kind, rng)
     if route == "numpy":
         monkeypatch.setenv("NGSBITS_SEQPURGE_NO_NATIVE", "1")
+    scan_types = []
+
+    def decide(scans, *args, **kw):
+        scan_types.append(scans.dtype)
+        return sp.seqpurge_decide_into(scans, *args, **kw)
+    monkeypatch.setattr("ngsbits_tpu_torch.qc.seqpurge.seqpurge_decide_into", decide)
     ref = JaxEngine(JaxParams(a1=a1, a2=a2, ec=ec, **extra))
     assert ref.native_available() == (route == "native")
     port = SeqPurgeEngine(SeqPurgeParams(a1=a1, a2=a2, ec=ec, **extra), device="cpu")
@@ -131,6 +140,7 @@ def test_decisions_match_jax_engine_at_the_edges(monkeypatch, kind, route, ec):
         else:
             assert got[k] == want[k], k
     assert port.stats.reads_trimmed_insert > 0
+    assert scan_types == [torch.uint8] * len(batches)
     if ec and kind != "short_and_all_n":
         assert port.stats.mismatch_r1.sum() + port.stats.mismatch_r2.sum() > 0
 
@@ -155,8 +165,9 @@ def _decide(mates, a1, a2, device="cpu", **extra):
     acc = torch.zeros(sp.ACC_SIZE, dtype=torch.int64, device=device)
     params = dict(selfcheck.PARAMS, ec=False)
     params.update(extra)
+    need = sp.decide_thresholds(table, params["match_perc"], params["mep"])
     sp.seqpurge_decide_into(scans, ins, bases, quals, torch.stack([len1, len2]),
-                            table, out, acc, **params)
+                            table, need, out, acc, **params)
     return (out.cpu().numpy(), sp.acc_fields(acc.cpu().numpy()), bases.cpu().numpy(),
             quals.cpu().numpy(), ins.cpu().numpy(), table.cpu().numpy())
 
@@ -182,18 +193,29 @@ def test_ties_go_to_the_smallest_offset():
     assert (out[0, 8:] > 32).all()
 
 
-def test_table_too_small_for_the_rows_is_refused():
-    B, L = 2, 80
-    with pytest.raises(ValueError, match="table"):
-        sp.seqpurge_decide_into(
-            torch.zeros((sp.SCAN_ROWS, B, L), dtype=torch.int32),
+def _decide_args(B, L, T, need_width):
+    return (torch.zeros((sp.SCAN_ROWS, B, L), dtype=sp.ADAPTER_COUNT),
             torch.zeros((2, B, L), dtype=torch.int16),
             torch.zeros((2, B, L), dtype=torch.uint8),
             torch.zeros((2, B, L), dtype=torch.uint8),
             torch.zeros((2, B), dtype=torch.int32),
-            torch.ones((70, 70), dtype=torch.float64),
+            torch.ones((T, T), dtype=torch.float64),
+            torch.zeros((2, need_width), dtype=torch.int32),
             torch.empty((3, B), dtype=torch.int32),
-            torch.zeros(sp.ACC_SIZE, dtype=torch.int64), **dict(selfcheck.PARAMS, ec=False))
+            torch.zeros(sp.ACC_SIZE, dtype=torch.int64))
+
+
+def test_table_too_small_for_the_rows_is_refused():
+    with pytest.raises(ValueError, match="table"):
+        sp.seqpurge_decide_into(*_decide_args(2, 80, 70, 70),
+                                **dict(selfcheck.PARAMS, ec=False))
+
+
+def test_thresholds_of_another_table_are_refused():
+    """``need`` must hold one threshold per total of the table given."""
+    with pytest.raises(ValueError, match="need"):
+        sp.seqpurge_decide_into(*_decide_args(2, 80, 100, 99),
+                                **dict(selfcheck.PARAMS, ec=False))
 
 
 @pytest.mark.parametrize("B,L", [(0, 40), (5, 0), (3, 1)])
@@ -240,3 +262,35 @@ def test_error_correction_moves_the_base_of_lower_quality():
     assert acc["mismatch_r1"].sum() + acc["mismatch_r2"].sum() == 2
     assert acc["errors_per_read"][3] == 1
 
+
+
+# (match_perc, mep): the defaults and the edges of both tests
+THRESHOLD_PARAMS = [(80.0, 1e-6)] + [(mp, mep) for mp in (0.0, 66.7, 100.0)
+                                     for mep in (0.0, 1e-6, 1.0)]
+
+
+@pytest.mark.parametrize("match_perc,mep", THRESHOLD_PARAMS)
+def test_thresholds_equal_the_float64_tests_everywhere(match_perc, mep):
+    """``decide_thresholds`` against the host's float64 tests (numpy, on the
+    JAX package's table) at every (tot, m) of the [1001, 1001] table: the
+    insert test (tot > 0, the ratio test, the tail) and the adapter test
+    (tot == 0 passes the ratio test) each hold exactly where m >= need[tot]."""
+    table = jax_table(0.25, sp.MAXLEN)
+    T = table.shape[0]
+    tot = np.arange(T)[:, None]
+    m = np.arange(T)[None, :]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        below = (tot > 0) & (100.0 * m / tot < match_perc)
+    tail = table <= mep
+    need = sp.decide_thresholds(torch.from_numpy(table), match_perc, mep).numpy()
+    assert need.shape == (2, T) and need.dtype == np.int32
+    np.testing.assert_array_equal(m >= need[0][:, None], (tot > 0) & ~below & tail)
+    np.testing.assert_array_equal(m >= need[1][:, None], ~below & tail)
+
+
+def test_thresholds_refuse_a_table_that_is_not_monotone():
+    """A row whose tail rises with m has no threshold: refused, not guessed."""
+    table = jax_table(0.25, 100)
+    table[40, 35] = 0.5   # above its neighbours, which pass at mep 1e-6
+    with pytest.raises(ValueError, match="monotone"):
+        sp.decide_thresholds(torch.from_numpy(table), 80.0, 1e-6)

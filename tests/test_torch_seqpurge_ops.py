@@ -227,6 +227,49 @@ def test_adapter_scan_at_the_edges(L, size):
         _assert_equal(got, jsp.adapter_scan_host(read, length, ad, size), names)
 
 
+def _full_count_rows(adapter: bytes, L: int = 90, at: int = 20):
+    """Rows at the adapter scans' largest counts, N outside ``at`` .. ``at``
+    + 63: the whole 64-base adapter (64 matches at one offset), the adapter
+    with every base changed (64 mismatches), all N, and a row of length 0."""
+    a = np.frombuffer(adapter, np.uint8)
+    shifted = np.zeros(256, np.uint8)
+    for x, y in zip(b"ACGT", b"CGTA"):
+        shifted[x] = y
+    rows = np.full((4, L), ord("N"), np.uint8)
+    rows[0, at:at + len(a)] = a
+    rows[1, at:at + len(a)] = shifted[a]
+    rows[3] = 0
+    return rows, np.array([L, L, L, 0], np.int32)
+
+
+@pytest.mark.parametrize("kernel", ["adapter_evidence", "adapter_scan"])
+def test_one_byte_adapter_counts_at_their_largest(kernel):
+    """The plain versions into one-byte outputs, as the engine gives them,
+    against the JAX package's int32 XLA and host scans, where counts reach
+    64: a 64-base adapter (window or prefix), reads that hold it whole,
+    all-N rows and a row of length 0."""
+    a1, a2 = (A1 + A2)[:64], (A2 + A1)[:64]
+    read1, len1 = _full_count_rows(a1)
+    read2, len2 = _full_count_rows(a2)
+    B, L = read1.shape
+    w1, w2 = (np.frombuffer(a, dtype=np.uint8) for a in (a1, a2))
+    if kernel == "adapter_evidence":
+        got = [torch.empty((B, L), dtype=tsp.ADAPTER_COUNT) for _ in range(4)]
+        tsp.adapter_evidence_into(*_t(read1, read2, len1, len2), a1, a2, *got)
+        wants = [jsp.adapter_evidence(read1, read2, len1, len2, w1, w2, 64),
+                 jsp.adapter_evidence_host(read1, read2, len1, len2, w1, w2, 64)]
+    else:
+        got = [torch.empty((B, L), dtype=tsp.ADAPTER_COUNT) for _ in range(2)]
+        tsp.adapter_scan_into(*_t(read1, len1), a1, *got)
+        wants = [jsp.adapter_scan(read1, len1, w1, 64),
+                 jsp.adapter_scan_host(read1, len1, w1, 64)]
+    for want in wants:
+        for g, w in zip(got, want):
+            assert g.dtype == torch.uint8
+            np.testing.assert_array_equal(g.numpy().astype(np.int32), np.asarray(w))
+    assert all(int(g.max()) == 64 for g in got)
+
+
 def test_scans_of_an_empty_batch():
     e8 = torch.zeros((0, 40), dtype=torch.uint8)
     e32 = torch.zeros(0, dtype=torch.int32)
