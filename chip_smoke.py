@@ -15,7 +15,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
             (B=65536 reads of 151 bp in the L=192 bucket, 6-bit quals binned
             to Q2/12/23/37), the same with uniform quals, ragged lengths with
             6- and 8-bit quals, SeqPurge's -qc bucket (B=16384, 10,000 reads)
-            and long reads (B=1024, L=10240); unpack and tails at the first.
+            and long reads (B=1024, L=10240); unpack and tails at each, timed
+            at the first and at the -qc bucket (unpack on the rows that hold
+            reads, as the stream step hands them: 65,536 and 10,000).
             SeqPurge's three scans at their main path's batch (B=10000 pairs,
             L=151) and at a ragged B=1237, L=250, with adapters with and
             without N and adapter prefixes of 15 and 20 bases (off the main
@@ -38,7 +40,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
             ``--phase kernels`` stops here.
 4. readqc   a seeded paired gzip FASTQ (2 x 2,000,000 reads x 151 bp) through
             the port's ReadQC CLI on the card, qcML then TXT, with every launch
-            count reset before and read after; then the first 200,000 reads of
+            count reset before and read after (each ReadQC kernel's
+            ``launches`` and ``launches_by_tool["ReadQC"]``, from the qcML run);
+            then the first 200,000 reads of
             each file through ReadQC on the card and through the port's CPU
             route (NGSBITS_TORCH_DEVICE=cpu, a subprocess): qcML and TXT must
             be byte-identical once ``creation `` lines are dropped.
@@ -46,7 +50,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
             bp) through the port's SeqPurge CLI on the card with -qc and
             -summary, counts reset before and read after: all seven kernels
             launched, the decisions once per batch of 10,000 pairs (200
-            times), and neither jax nor the JAX package loaded. Prints
+            times), and neither jax nor the JAX package loaded; each kernel's
+            ``launches_by_tool["SeqPurge"]`` (the ReadQC kernels run on its
+            -qc stream at B=16384). Prints
             pairs/s and the seconds by stage (scans and decisions: device
             time). Then the first 100,000 pairs on the card and on the
             CPU route, with the default flags and once with -ec -out3:
@@ -56,8 +62,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
 The CPU route is where the plain kernel versions run; the CPU tests hold them
 against the JAX package. This script imports only torch, numpy, the stdlib and
 ngsbits_tpu_torch. Before its last line it prints one JSON line with the
-kernels' records (the times at each kernel's main shape, and K1's at each
-input under ``inputs``; ``bound_ms`` is the larger of bytes over 3.35 TB/s and
+kernels' records (the times at each kernel's main shape, K1's at each
+input under ``inputs``, unpack's and tails' at both of their shapes under
+``shapes``; ``bound_ms`` is the larger of bytes over 3.35 TB/s and
 integer operations over 16.7 T/s, K1's bytes those inside the reads, K2's
 operations its compares four to a 32-bit operation, the decisions' bytes
 the counts and bases that their inputs need them to read).
@@ -175,6 +182,8 @@ K1_INPUTS = [
     ("B=16384 L=192 10000x151bp binned", 16384, 192, 6, "binned", 151, 10000),
     ("B=1024 L=10240 ragged uniform 8-bit", 1024, 10240, 8, "uniform", None, None),
 ]
+# where unpack and tails are timed: ReadQC's batch and SeqPurge's -qc bucket
+STREAM_SHAPES = (K1_INPUTS[0][0], K1_INPUTS[4][0])
 
 
 def _check_equal(case, label: str) -> int:
@@ -224,22 +233,24 @@ def _record(records: dict, case, label: str, main_shape: bool,
 def kernels(dev: torch.device) -> dict:
     """Every kernel against its plain version; device, per-call and plain
     times. K1 at each of ``K1_INPUTS`` (warm and cold); unpack and tails at
-    the first (warm and cold); the scans and the decisions warm and cold at
-    their main inputs, K2 also at its edges."""
+    each, timed (warm and cold) at ``STREAM_SHAPES``; the scans and the
+    decisions warm and cold at their main inputs, K2 also at its edges."""
     from ngsbits_tpu_torch.ops import selfcheck
     records: dict = {}
     phase("kernels: ReadQC")
-    k1 = []
+    k1, stream = [], {"readqc_unpack": [], "readqc_tails": []}
     for i, (label, B, L, qual_bits, profile, read_len, n_valid) in enumerate(K1_INPUTS):
         for case in selfcheck.cases(B, L, qual_bits, dev, seed=i, profile=profile,
                                     read_len=read_len, n_valid=n_valid):
             if case.name == "readqc_batch":
                 k1.append(_record(records, case, label, i == 0, cold=True))
-            elif i == 0:
-                _record(records, case, label, True, cold=True)
+            elif label in STREAM_SHAPES:
+                stream[case.name].append(_record(records, case, label, i == 0, cold=True))
             else:
                 _check_equal(case, label)
     records["readqc_batch"]["inputs"] = k1
+    for name, shapes in stream.items():
+        records[name]["shapes"] = shapes
     phase("kernels: SeqPurge at B=10000, L=151 and B=1237, L=250 (random bytes "
           "past the reads, all-N pairs); K2 at B=1000, L=1000 and B=3, L=24576 "
           "(its edges)")
@@ -342,6 +353,7 @@ def readqc(records: dict):
                 raise AssertionError(f"{name} was not launched by ReadQC: {launches}")
             if fmt == "qcML":
                 records[name]["launches"] = launches[name]
+                records[name]["launches_by_tool"] = {"ReadQC": launches[name]}
         if fmt == "txt" and f"read count: {total}" not in out.read_text():
             raise AssertionError("TXT output lacks the expected read count")
         print(f"ReadQC {fmt} on {torch.cuda.get_device_name(0)}: {seconds:.3f} s, "
@@ -406,6 +418,8 @@ def seqpurge(records: dict):
                              f"times, not once per batch ({N_READS // SP_BATCH})")
     for name in ("insert_scan", "adapter_evidence", "adapter_scan", "seqpurge_decide"):
         records[name]["launches"] = launches[name]
+    for name, rec in records.items():
+        rec.setdefault("launches_by_tool", {})["SeqPurge"] = launches[name]
     if _jax_loaded():
         raise AssertionError(f"the port loaded {_jax_loaded()}")
     summary = (WORK / "sp_full" / "summary.txt").read_text()

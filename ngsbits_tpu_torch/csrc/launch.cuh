@@ -14,12 +14,4 @@ inline int sm_count() {
     return n;
 }
 
-// Blocks for a grid-stride loop over `items`: enough to fill every SM.
-inline int grid_for(long long items, int threads) {
-    long long blocks = (items + threads - 1) / threads;
-    const long long cap = 16LL * sm_count();
-    if (blocks > cap) blocks = cap;
-    return static_cast<int>(blocks < 1 ? 1 : blocks);
-}
-
 }  // namespace ngs

@@ -397,69 +397,232 @@ readqc_batch_kernel(const uint8_t* __restrict__ bases,
 }
 
 // ---------------------------------------------------------------------------
-// Unpack. One thread per group of four columns: one byte of 2-bit codes, a
-// nibble of the N mask, three bytes of 6-bit quals (or four 8-bit ones), and
-// one 32-bit store each of ASCII bases and quals. L is a multiple of 8, and
-// the outputs are 4-byte aligned (the wrapper checks both).
+// Unpack (replaces the XLA `unpack` of ngsbits_tpu/ops/readqc.py:144). What
+// bounds it on this card: bytes. A column costs 1.125 packed bytes in (6-bit
+// quals; 1.375 with 8-bit) and two ASCII bytes out, against about six
+// integer operations, so the bytes take about three times as long as the
+// operations at 3.35 TB/s and 16.7 T op/s. So the loads and stores are wide
+// and the operations per byte few:
+//   - All five arrays are contiguous and L % 8 == 0, so the bytes of columns
+//     8k..8k+7 of the flattened batch lie at a fixed multiple of k in each
+//     (codes 2k, N mask k, 6-bit quals 6k, 8-bit quals 8k, outputs 8k),
+//     whatever the row. A thread's chunk index is its 32-bit place in the
+//     grid; no row or column is computed.
+//   - A chunk is 16 columns: one 32-bit word of codes, one 16-bit word of
+//     the N mask, three 32-bit words of 6-bit quals or one 16-byte vector of
+//     8-bit quals in; one 16-byte store each of bases and quals out. A
+//     thread loads both of its chunks before it converts either.
+//   - Bases: the codes' 2-bit fields and the mask's bits are spread into
+//     nibbles (code | N << 2), and __byte_perm picks each byte from "ACGT"
+//     or "NNNN". 6-bit quals: four fields spread into bytes, + 0x21 each;
+//     8-bit quals: __vadd4 (modulo 256 a byte).
+//   - Arrays not aligned for 16-column chunks take 8-column chunks (2 bytes
+//     of codes, 1 of mask, 6 or 8 of quals, 8-byte stores) or, where those
+//     are not aligned either, byte loads and 4-byte stores (the wrapper
+//     refuses outputs that are not 4-byte aligned). An odd last 8 columns of
+//     a batch take the byte path.
+// The caller hands it only the rows that hold reads: K1 reads no byte of a
+// row of length 0.
 // ---------------------------------------------------------------------------
 
-__global__ void readqc_unpack_kernel(const uint8_t* __restrict__ pb,
-                                     const uint8_t* __restrict__ nm,
-                                     const uint8_t* __restrict__ pq, int B,
-                                     int L, int qual_bits,
-                                     uint8_t* __restrict__ bases,
-                                     uint8_t* __restrict__ quals) {
-    const int G = L / 4;
-    const long long n = static_cast<long long>(B) * G;
-    const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-    for (long long g = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-         g < n; g += stride) {
-        const long long r = g / G;
-        const int j = static_cast<int>(g - r * G);
-        const unsigned codes = pb[r * G + j];
-        const unsigned nbits = (nm[r * (L / 8) + j / 2] >> ((j & 1) * 4)) & 0xFu;
-        unsigned qv;
-        if (qual_bits == 8) {
-            const uint8_t* p = pq + r * L + 4 * j;
-            qv = p[0] | (p[1] << 8) | (p[2] << 16) | (static_cast<unsigned>(p[3]) << 24);
-        } else {
-            const uint8_t* p = pq + r * (3 * G) + 3 * j;
-            const unsigned v = p[0] | (p[1] << 8) | (p[2] << 16);
-            qv = (v & 63u) | (((v >> 6) & 63u) << 8) | (((v >> 12) & 63u) << 16) |
-                 (((v >> 18) & 63u) << 24);
-        }
-        unsigned bout = 0, qout = 0;
+constexpr int kUnpackThreads = 256;
+constexpr int kUnpackPer = 2;                // chunks a thread, loaded before either is converted
+constexpr unsigned kACGT = 0x54474341u;      // "ACGT", little-endian
+constexpr unsigned kNNNN = 0x4E4E4E4Eu;      // "NNNN"
+constexpr unsigned kPlus33 = 0x21212121u;
+
+// A chunk's packed bytes, little-endian: codes (2 bits a column), mask (1 bit
+// a column), quals (6- or 8-bit fields; 6-bit fields leave a zero word last,
+// for the funnel shifts)
+struct Packed {
+    unsigned codes, mask;
+    unsigned q[4];
+};
+
+// 2-bit fields of the low 16 bits -> the low two bits of each nibble
+__device__ __forceinline__ unsigned spread2(unsigned x) {
+    x &= 0xFFFFu;
+    x = (x | (x << 8)) & 0x00FF00FFu;
+    x = (x | (x << 4)) & 0x0F0F0F0Fu;
+    return (x | (x << 2)) & 0x33333333u;
+}
+
+// the low 8 bits -> bit 2 of each nibble
+__device__ __forceinline__ unsigned spread1(unsigned x) {
+    x &= 0xFFu;
+    x = (x | (x << 12)) & 0x000F000Fu;
+    x = (x | (x << 6)) & 0x03030303u;
+    return ((x | (x << 3)) & 0x11111111u) << 2;
+}
+
+// four 6-bit fields (bits 0..23; higher bits ignored) -> four bytes, + 33 each
+__device__ __forceinline__ unsigned quals6(unsigned v) {
+    return ((v & 0x3Fu) | ((v << 2) & 0x3F00u) | ((v << 4) & 0x3F0000u) |
+            ((v << 6) & 0x3F000000u)) + kPlus33;
+}
+
+// ASCII bases and quals of kCols (8 or 16) columns, kCols / 4 words each
+template <int kCols>
+__device__ __forceinline__ void unpack_words(const Packed& p, bool q8, unsigned* bo,
+                                             unsigned* qo) {
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-            const unsigned code = (codes >> (2 * k)) & 3u;
-            // "ACGT" packed little-endian: 'A'=0x41 'C'=0x43 'G'=0x47 'T'=0x54
-            const unsigned base =
-                ((nbits >> k) & 1u) ? 'N' : ((0x54474341u >> (8 * code)) & 0xFFu);
-            bout |= base << (8 * k);
-            qout |= ((((qv >> (8 * k)) & 0xFFu) + 33u) & 0xFFu) << (8 * k);
+    for (int h = 0; h < kCols / 8; ++h) {
+        const unsigned sel = spread2(p.codes >> (16 * h)) | spread1(p.mask >> (8 * h));
+        bo[2 * h] = __byte_perm(kACGT, kNNNN, sel);
+        bo[2 * h + 1] = __byte_perm(kACGT, kNNNN, sel >> 16);
+    }
+#pragma unroll
+    for (int k = 0; k < kCols / 4; ++k) {
+        if (q8) {
+            qo[k] = __vadd4(p.q[k], kPlus33);
+        } else {  // group k's three bytes start at byte 3k
+            const int w = 3 * k / 4;
+            qo[k] = quals6(__funnelshift_r(p.q[w], p.q[w + 1], 8 * (3 * k % 4)));
         }
-        reinterpret_cast<unsigned*>(bases + r * L)[j] = bout;
-        reinterpret_cast<unsigned*>(quals + r * L)[j] = qout;
+    }
+}
+
+// chunk g of kCols (8 or 16) columns by vector loads at its natural alignment
+template <int kCols>
+__device__ __forceinline__ Packed load_chunk(const uint8_t* __restrict__ pb,
+                                             const uint8_t* __restrict__ nm,
+                                             const uint8_t* __restrict__ pq, bool q8,
+                                             unsigned g) {
+    Packed p = {};
+    const size_t i = g;
+    if constexpr (kCols == 16) {
+        p.codes = __ldg(reinterpret_cast<const unsigned*>(pb) + i);
+        p.mask = __ldg(reinterpret_cast<const unsigned short*>(nm) + i);
+        if (q8) {
+            const uint4 v = __ldg(reinterpret_cast<const uint4*>(pq) + i);
+            p.q[0] = v.x, p.q[1] = v.y, p.q[2] = v.z, p.q[3] = v.w;
+        } else {
+            const unsigned* w = reinterpret_cast<const unsigned*>(pq) + 3 * i;
+            p.q[0] = __ldg(w), p.q[1] = __ldg(w + 1), p.q[2] = __ldg(w + 2);
+        }
+    } else {
+        p.codes = __ldg(reinterpret_cast<const unsigned short*>(pb) + i);
+        p.mask = __ldg(nm + i);
+        if (q8) {
+            const uint2 v = __ldg(reinterpret_cast<const uint2*>(pq) + i);
+            p.q[0] = v.x, p.q[1] = v.y;
+        } else {
+            const unsigned short* w = reinterpret_cast<const unsigned short*>(pq) + 3 * i;
+            p.q[0] = __ldg(w) | static_cast<unsigned>(__ldg(w + 1)) << 16;
+            p.q[1] = __ldg(w + 2);
+        }
+    }
+    return p;
+}
+
+template <int kCols>
+__device__ __forceinline__ void store_chunk(uint8_t* __restrict__ bases,
+                                            uint8_t* __restrict__ quals, unsigned g,
+                                            const unsigned* bo, const unsigned* qo) {
+    const size_t i = g;
+    if constexpr (kCols == 16) {
+        reinterpret_cast<uint4*>(bases)[i] = make_uint4(bo[0], bo[1], bo[2], bo[3]);
+        reinterpret_cast<uint4*>(quals)[i] = make_uint4(qo[0], qo[1], qo[2], qo[3]);
+    } else {
+        reinterpret_cast<uint2*>(bases)[i] = make_uint2(bo[0], bo[1]);
+        reinterpret_cast<uint2*>(quals)[i] = make_uint2(qo[0], qo[1]);
+    }
+}
+
+// 8 columns (octet o) by byte loads and 4-byte stores: any input alignment
+__device__ __forceinline__ void unpack_octet(const uint8_t* __restrict__ pb,
+                                             const uint8_t* __restrict__ nm,
+                                             const uint8_t* __restrict__ pq, bool q8,
+                                             unsigned o, uint8_t* __restrict__ bases,
+                                             uint8_t* __restrict__ quals) {
+    const size_t i = o;
+    Packed p = {};
+    p.codes = __ldg(pb + 2 * i) | static_cast<unsigned>(__ldg(pb + 2 * i + 1)) << 8;
+    p.mask = __ldg(nm + i);
+    const int n = q8 ? 8 : 6;
+    const uint8_t* q = pq + n * i;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+        if (j < n) p.q[j >> 2] |= static_cast<unsigned>(__ldg(q + j)) << (8 * (j & 3));
+    unsigned bo[2], qo[2];
+    unpack_words<8>(p, q8, bo, qo);
+    unsigned* b = reinterpret_cast<unsigned*>(bases) + 2 * i;
+    unsigned* u = reinterpret_cast<unsigned*>(quals) + 2 * i;
+    b[0] = bo[0], b[1] = bo[1], u[0] = qo[0], u[1] = qo[1];
+}
+
+// kCols 16 or 8: chunks by vector loads and stores; 0: octets by unpack_octet.
+// n8: 8-column octets in the batch (B * L / 8).
+template <int kCols>
+__global__ void __launch_bounds__(kUnpackThreads)
+readqc_unpack_kernel(const uint8_t* __restrict__ pb, const uint8_t* __restrict__ nm,
+                     const uint8_t* __restrict__ pq, unsigned n8, bool q8,
+                     uint8_t* __restrict__ bases, uint8_t* __restrict__ quals) {
+    const unsigned g0 = blockIdx.x * (kUnpackThreads * kUnpackPer) + threadIdx.x;
+    if constexpr (kCols == 0) {
+#pragma unroll
+        for (int k = 0; k < kUnpackPer; ++k) {
+            const unsigned o = g0 + k * kUnpackThreads;
+            if (o < n8) unpack_octet(pb, nm, pq, q8, o, bases, quals);
+        }
+    } else {
+        const unsigned n = n8 / (kCols / 8);  // whole chunks
+        Packed p[kUnpackPer];
+#pragma unroll
+        for (int k = 0; k < kUnpackPer; ++k) {
+            const unsigned g = g0 + k * kUnpackThreads;
+            if (g < n) p[k] = load_chunk<kCols>(pb, nm, pq, q8, g);
+        }
+#pragma unroll
+        for (int k = 0; k < kUnpackPer; ++k) {
+            const unsigned g = g0 + k * kUnpackThreads;
+            if (g < n) {
+                unsigned bo[kCols / 4], qo[kCols / 4];
+                unpack_words<kCols>(p[k], q8, bo, qo);
+                store_chunk<kCols>(bases, quals, g, bo, qo);
+            } else if (kCols == 16 && g == n && (n8 & 1)) {
+                unpack_octet(pb, nm, pq, q8, n8 - 1, bases, quals);
+            }
+        }
     }
 }
 
 // ---------------------------------------------------------------------------
-// Tails. One thread per read. The three histograms take warp-aggregated
-// atomics: lanes with the same bin elect one lane, which adds the lane count
-// (reads in one batch mostly share a length and a few mean qualities, so a
-// warp issues a handful of atomics). The scalar counts are reduced per block
-// and added once per block. Integer rules, exactly as the XLA step:
+// Tails (replaces the per-read tail of the XLA `step`,
+// ngsbits_tpu/ops/readqc.py:183). It reads eight bytes a read and adds into
+// a few hundred int64 words, so its bytes bound is a fraction of a
+// microsecond; what it costs is latency: the launch, one round of loads, and
+// the adds that leave its blocks. The reads of a batch share a length and a
+// few mean qualities, so adds from every warp into the carries would queue on
+// a handful of L2 addresses; each block counts first:
+//   - A thread per read, 256 to a block: 256 blocks at B=65536, 64 at
+//     SeqPurge's -qc bucket. Grids of 4 to 16 reads a thread were slower on
+//     the H100, with 16-byte loads too, and 2 no faster: a thread's reads go
+//     one after another through a division and three shared adds, and that
+//     chain, not the loads, sets the time (scripts/k1_variants.py --kernel
+//     tails).
+//   - One 32-bit floor division a read decides every rule: with
+//     qsum = h*len + r (0 <= r < len), the rounded mean is h + (2r >= len),
+//     Q20 is h >= 20, and the qdist bin is h (59 when h == 60 and r == 0;
+//     dropped above that, or below 0). Exact for every int32 sum.
+//   - The histograms are block-private 32-bit words in shared memory: 100
+//     bins of rounded means, 60 of qdist, and Lc + 1 of lengths while Lc <
+//     kLenCap (only long-read buckets reach the cap; past it len_hist takes
+//     warp-aggregated global atomics, as before). Each nonzero bin leaves
+//     the block with one 64-bit add.
+//   - q20, reads and bases: a warp sum, a shared sum, one add per block.
+// Integer rules, exactly as the XLA step:
 //   rounded mean  (2*qsum + len) // (2*len), clipped to 0..99
 //   Q20 read      qsum >= 20*len
 //   qdist bin     qsum // len; qsum == 60*len -> bin 59; qsum > 60*len dropped
 // ---------------------------------------------------------------------------
 
 constexpr int kTailThreads = 256;
-
-__device__ __forceinline__ long long floor_div(long long a, long long b) {
-    // b > 0
-    return a >= 0 ? a / b : -((-a + b - 1) / b);
-}
+constexpr int kTailPer = 1;                         // reads a thread
+constexpr int kTailRows = kTailThreads * kTailPer;  // reads a block
+constexpr int kReadQBins = 100;
+constexpr int kQDistBins = 60;
+constexpr int kLenCap = 4096;  // len_hist in shared memory while Lc < kLenCap
 
 __device__ __forceinline__ void warp_hist_add(long long* hist, int idx, bool take) {
     const unsigned active = __ballot_sync(kFull, take);
@@ -469,56 +632,96 @@ __device__ __forceinline__ void warp_hist_add(long long* hist, int idx, bool tak
     }
 }
 
+// one into s[bin], none where bin < 0. The lanes of a warp mostly share a
+// bin; aggregating them first by __match_any_sync was slower on the H100
+// (scripts/k1_variants.py --kernel tails).
+__device__ __forceinline__ void shared_add(unsigned* s, int bin) {
+    if (bin >= 0) atomicAdd(s + bin, 1u);
+}
+
+// the carry word of shared bin i: rounded means, then qdist, then lengths
+__device__ __forceinline__ long long* tail_bin(int i, long long* read_q_hist,
+                                               long long* qdist, long long* len_hist) {
+    return i < kReadQBins ? read_q_hist + i
+           : i < kReadQBins + kQDistBins ? qdist + (i - kReadQBins)
+                                         : len_hist + (i - kReadQBins - kQDistBins);
+}
+
 __global__ void __launch_bounds__(kTailThreads)
 readqc_tails_kernel(const int* __restrict__ read_qsum,
                     const int* __restrict__ lengths, int B, int n_valid, int Lc,
-                    long long* __restrict__ q20, long long* __restrict__ read_q_hist,
-                    long long* __restrict__ qdist, long long* __restrict__ len_hist,
-                    long long* __restrict__ n_reads, long long* __restrict__ bases) {
-    __shared__ long long s_sum[3];  // q20, reads, bases
-    if (threadIdx.x < 3) s_sum[threadIdx.x] = 0;
-    __syncthreads();
-    long long my_q20 = 0, my_reads = 0, my_bases = 0;
-    const int stride = gridDim.x * blockDim.x;
-    // every lane runs the same number of iterations: the warp intrinsics
-    // below need the whole warp
-    for (int base = blockIdx.x * blockDim.x; base < B; base += stride) {
-        const int r = base + threadIdx.x;
-        const bool in = r < B;
-        const long long len = in ? lengths[r] : 0;
-        const long long rq = in ? read_qsum[r] : 0;
-        const bool real = in && r < n_valid;
-        const bool valid = real && len > 0;
-        my_bases += len;
+                    long long* __restrict__ q20,
+                    long long* __restrict__ read_q_hist, long long* __restrict__ qdist,
+                    long long* __restrict__ len_hist, long long* __restrict__ n_reads,
+                    long long* __restrict__ bases) {
+    __shared__ unsigned s_hist[kReadQBins + kQDistBins + kLenCap];
+    __shared__ u64 s_sum[3];  // q20, reads, bases
+    unsigned* s_rq = s_hist;
+    unsigned* s_qd = s_hist + kReadQBins;
+    unsigned* s_len = s_qd + kQDistBins;
+    const int tid = threadIdx.x;
+    const bool shared_len = Lc < kLenCap;
+    const int nbins = kReadQBins + kQDistBins + (shared_len ? Lc + 1 : 0);
+    for (int i = tid; i < nbins; i += kTailThreads) s_hist[i] = 0;
+    if (tid < 3) s_sum[tid] = 0;
+
+    // this thread's reads: r0 + kTailThreads * i
+    const int r0 = blockIdx.x * kTailRows + tid;
+    int len[kTailPer], rq[kTailPer];
+#pragma unroll
+    for (int i = 0; i < kTailPer; ++i) {
+        const int r = r0 + kTailThreads * i;
+        len[i] = r < B ? __ldg(lengths + r) : 0;
+        rq[i] = r < B ? __ldg(read_qsum + r) : 0;
+    }
+    __syncthreads();  // the histograms are zeroed
+
+    long long my_bases = 0;
+    unsigned my_q20 = 0, my_reads = 0;
+    // every read's bins, then the adds; -1: no bin
+    int rq_bin[kTailPer], qd_bin[kTailPer], len_bin[kTailPer];
+#pragma unroll
+    for (int i = 0; i < kTailPer; ++i) {
+        const int r = r0 + kTailThreads * i;
+        const int l = len[i];  // 0 past B
+        const bool real = r < B && r < n_valid;
+        const bool valid = real && l > 0;
+        const int d = valid ? l : 1;
+        int h = rq[i] / d, rem = rq[i] - h * d;
+        if (rem < 0) --h, rem += d;
+        my_bases += l;
         my_reads += real;
-        int rq_idx = 0, qd_idx = 0;
-        bool qd_take = false;
-        if (valid) {
-            my_q20 += rq >= 20 * len;
-            const long long rounded = floor_div(2 * rq + len, 2 * len);
-            rq_idx = static_cast<int>(rounded < 0 ? 0 : (rounded > 99 ? 99 : rounded));
-            long long h = floor_div(rq, len);
-            if (rq == 60 * len) h = 59;
-            qd_take = rq <= 60 * len && h >= 0;
-            qd_idx = static_cast<int>(h);
+        my_q20 += valid && h >= 20;
+        rq_bin[i] = valid ? min(max(h + (rem >= d - rem), 0), kReadQBins - 1) : -1;
+        qd_bin[i] = valid && h >= 0 && (h < 60 || (h == 60 && rem == 0)) ? min(h, 59) : -1;
+        len_bin[i] = real ? min(max(l, 0), Lc) : -1;
+    }
+    // every lane runs every step: warp_hist_add needs the whole warp
+#pragma unroll
+    for (int i = 0; i < kTailPer; ++i) {
+        shared_add(s_rq, rq_bin[i]);
+        shared_add(s_qd, qd_bin[i]);
+        if (shared_len) {
+            shared_add(s_len, len_bin[i]);
+        } else {
+            warp_hist_add(len_hist, max(len_bin[i], 0), len_bin[i] >= 0);
         }
-        const int len_idx = static_cast<int>(len < 0 ? 0 : (len > Lc ? Lc : len));
-        warp_hist_add(read_q_hist, rq_idx, valid);
-        warp_hist_add(qdist, qd_idx, qd_take);
-        warp_hist_add(len_hist, len_idx, real);
     }
-    for (int o = 16; o; o >>= 1) {
-        my_q20 += __shfl_xor_sync(kFull, my_q20, o);
-        my_reads += __shfl_xor_sync(kFull, my_reads, o);
-        my_bases += __shfl_xor_sync(kFull, my_bases, o);
-    }
-    if ((threadIdx.x & 31) == 0) {
-        atomicAdd(reinterpret_cast<u64*>(&s_sum[0]), static_cast<u64>(my_q20));
-        atomicAdd(reinterpret_cast<u64*>(&s_sum[1]), static_cast<u64>(my_reads));
-        atomicAdd(reinterpret_cast<u64*>(&s_sum[2]), static_cast<u64>(my_bases));
+    my_q20 = __reduce_add_sync(kFull, my_q20);
+    my_reads = __reduce_add_sync(kFull, my_reads);
+    for (int o = 16; o; o >>= 1) my_bases += __shfl_xor_sync(kFull, my_bases, o);
+    if ((tid & 31) == 0) {
+        atomicAdd(&s_sum[0], static_cast<u64>(my_q20));
+        atomicAdd(&s_sum[1], static_cast<u64>(my_reads));
+        atomicAdd(&s_sum[2], static_cast<u64>(my_bases));
     }
     __syncthreads();
-    if (threadIdx.x == 0) {
+    // each nonzero bin leaves the block once
+    for (int i = tid; i < nbins; i += kTailThreads) {
+        const unsigned c = s_hist[i];
+        if (c) add64(tail_bin(i, read_q_hist, qdist, len_hist), c);
+    }
+    if (tid == 0) {
         if (s_sum[0]) add64(q20, s_sum[0]);
         if (s_sum[1]) add64(n_reads, s_sum[1]);
         if (s_sum[2]) add64(bases, s_sum[2]);
@@ -566,11 +769,27 @@ int ngs_readqc_batch(const void* bases, const void* quals, const void* lengths,
 int ngs_readqc_unpack(const void* pb, const void* nm, const void* pq, int B,
                       int L, int qual_bits, void* bases, void* quals,
                       void* stream) {
-    const int threads = 256;
-    readqc_unpack_kernel<<<ngs::grid_for(static_cast<long long>(B) * (L / 4), threads),
-                           threads, 0, static_cast<cudaStream_t>(stream)>>>(
+    const long long n8 = static_cast<long long>(B) * (L / 8);
+    if (n8 <= 0) return static_cast<int>(cudaSuccess);
+    if (n8 > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);  // 32-bit indices
+    const bool q8 = qual_bits == 8;
+    const auto aligned = [](const void* p, uintptr_t a) {
+        return reinterpret_cast<uintptr_t>(p) % a == 0;
+    };
+    const bool vec16 = aligned(bases, 16) && aligned(quals, 16) && aligned(pb, 4) &&
+                       aligned(nm, 2) && aligned(pq, q8 ? 16 : 4);
+    const bool vec8 = aligned(bases, 8) && aligned(quals, 8) && aligned(pb, 2) &&
+                      aligned(pq, q8 ? 8 : 2);
+    // 16-column chunks, and the odd last octet; else one chunk an octet
+    const long long chunks = vec16 ? (n8 + 1) / 2 : n8;
+    const long long per_block = kUnpackThreads * kUnpackPer;
+    const int grid = static_cast<int>((chunks + per_block - 1) / per_block);
+    const auto kernel = vec16  ? readqc_unpack_kernel<16>
+                        : vec8 ? readqc_unpack_kernel<8>
+                               : readqc_unpack_kernel<0>;
+    kernel<<<grid, kUnpackThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(pb), static_cast<const uint8_t*>(nm),
-        static_cast<const uint8_t*>(pq), B, L, qual_bits,
+        static_cast<const uint8_t*>(pq), static_cast<unsigned>(n8), q8,
         static_cast<uint8_t*>(bases), static_cast<uint8_t*>(quals));
     return static_cast<int>(cudaGetLastError());
 }
@@ -580,8 +799,10 @@ int ngs_readqc_tails(const void* read_qsum, const void* lengths, int B,
                      void* read_q_hist, void* qdist1, void* qdist2,
                      void* len_hist, void* n_fwd, void* n_rev, void* bases,
                      void* stream) {
+    if (B <= 0) return static_cast<int>(cudaSuccess);
+    if (B > 0x7FFFFFFF - kTailRows) return static_cast<int>(cudaErrorInvalidValue);
     const bool fwd = direction == 0;
-    readqc_tails_kernel<<<ngs::grid_for(B, kTailThreads), kTailThreads, 0,
+    readqc_tails_kernel<<<(B + kTailRows - 1) / kTailRows, kTailThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(read_qsum), static_cast<const int*>(lengths), B,
         n_valid, Lc, static_cast<long long*>(q20),

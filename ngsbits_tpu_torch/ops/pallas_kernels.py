@@ -181,7 +181,8 @@ def readqc_unpack_into(pb: torch.Tensor, nm: torch.Tensor, pq: torch.Tensor,
     _check("pb", pb, torch.uint8, (B, wb))
     _check("nm", nm, torch.uint8, (B, wn))
     _check("pq", pq, torch.uint8, (B, wq))
-    # the kernel stores four bytes at a time
+    # the kernel stores 16 bytes at a time where the outputs allow it, and
+    # never fewer than four
     _check("bases", bases, torch.uint8, (B, L), align=4)
     _check("quals", quals, torch.uint8, (B, L), align=4)
     if B == 0 or L == 0:

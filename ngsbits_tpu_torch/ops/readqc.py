@@ -5,7 +5,7 @@ Counterpart of ``ngsbits_tpu/ops/readqc.py``. Behavioral reference: ngs-bits
 ``StatisticsReads::update`` (cppNGS/StatisticsReads.cpp:26-81).
 
 The stream step runs three kernels on the current stream with no host
-synchronisation: unpack (packed upload -> ASCII ``[B, L]``), K1 (per-cycle
+synchronisation: unpack (the packed reads -> ASCII rows), K1 (per-cycle
 counts and sums, base-quality histogram, per-read quality sums) and tails
 (per-read statistics). All 12 carries are int64 on the device, so a run of any
 length accumulates without spilling to the host. Unlike the JAX step, which
@@ -62,13 +62,10 @@ def _buffer(scratch: dict, key: str, n: int, dtype: torch.dtype,
 
 
 def unpack(pb: torch.Tensor, nm: torch.Tensor, pq: torch.Tensor, L: int,
-           qual_bits: int, scratch: dict | None = None):
-    """Packed bases, N mask and quals -> ASCII ``[B, L]`` bases and quals.
-    With a ``scratch`` dict the outputs reuse its buffers across calls."""
-    B = pb.shape[0]
-    scratch = {} if scratch is None else scratch
-    bases = _buffer(scratch, "bases", B * L, torch.uint8, pb.device).view(B, L)
-    quals = _buffer(scratch, "quals", B * L, torch.uint8, pb.device).view(B, L)
+           qual_bits: int):
+    """Packed bases, N mask and quals -> ASCII ``[B, L]`` bases and quals."""
+    bases, quals = (torch.empty((pb.shape[0], L), dtype=torch.uint8, device=pb.device)
+                    for _ in range(2))
     pk.readqc_unpack_into(pb, nm, pq, qual_bits, bases, quals)
     return bases, quals
 
@@ -103,8 +100,13 @@ def stream_step(carry: dict, pb: torch.Tensor, nm: torch.Tensor,
 
     ``pb``/``nm``/``pq`` are ``pack_batch``'s outputs for a ``[B, L]`` bucket
     with L % 8 == 0 and L at most the carry's width; ``lengths`` is ``[B]``
-    int32; rows < ``n_valid`` are reads, rows beyond are padding;
-    ``direction`` 0 is forward, 1 reverse.
+    int32; rows < ``n_valid`` are reads, rows beyond are padding of length 0
+    (as ``ReadStatistics._bucket`` makes them); ``direction`` 0 is forward,
+    1 reverse.
+
+    Only the reads are unpacked: K1 reads no byte of a row of length 0, so
+    the padding rows of the scratch buffers are left as they were. K1 and
+    tails take all B rows.
     """
     B = pb.shape[0]
     L = pb.shape[1] * 4
@@ -112,7 +114,10 @@ def stream_step(carry: dict, pb: torch.Tensor, nm: torch.Tensor,
         raise ValueError(f"batch width {L} exceeds carry width "
                          f"{carry['counts5'].shape[1]}; grow the carry first")
     scratch = {} if scratch is None else scratch
-    bases, quals = unpack(pb, nm, pq, L, qual_bits, scratch)
+    bases = _buffer(scratch, "bases", B * L, torch.uint8, pb.device).view(B, L)
+    quals = _buffer(scratch, "quals", B * L, torch.uint8, pb.device).view(B, L)
+    n = min(max(int(n_valid), 0), B)
+    pk.readqc_unpack_into(pb[:n], nm[:n], pq[:n], qual_bits, bases[:n], quals[:n])
     read_qsum = _buffer(scratch, "read_qsum", B, torch.int32, pb.device)
     qsum = carry["qsum1"] if direction == 0 else carry["qsum2"]
     pk.readqc_batch_into(bases, quals, lengths, carry["counts5"], qsum,

@@ -126,7 +126,9 @@ def batch_case(bases: torch.Tensor, quals: torch.Tensor,
 def cases(B: int, L: int, qual_bits: int, device: torch.device,
           seed: int = 0, profile: str = "uniform", read_len: int | None = None,
           n_valid: int | None = None) -> list[Case]:
-    """unpack, K1 and tails on one batch of ``reads`` (the same keywords)."""
+    """unpack, K1 and tails on one batch of ``reads`` (the same keywords),
+    each on what the stream step hands it: unpack the first ``n_valid`` rows,
+    K1 and tails all B."""
     if L % 8:
         raise ValueError(f"L must be a multiple of 8, got {L}")
     bases_np, quals_np, lengths_np, n_valid = reads(
@@ -135,16 +137,18 @@ def cases(B: int, L: int, qual_bits: int, device: torch.device,
               for a in pack_batch(bases_np, quals_np, qual_bits)]
     lengths = torch.from_numpy(lengths_np).to(device)
 
-    def u8():
-        return torch.empty((B, L), dtype=torch.uint8, device=device)
+    def u8(rows=B):
+        return torch.empty((rows, L), dtype=torch.uint8, device=device)
 
-    # unpack
-    uk, up = (u8(), u8()), (u8(), u8())
+    # unpack on the rows that hold reads, as the stream step hands them
+    reads_only = [t[:n_valid] for t in packed]
+    uk, up = (u8(n_valid), u8(n_valid)), (u8(n_valid), u8(n_valid))
     unpack = Case("readqc_unpack", pk.readqc_unpack_into,
-                  lambda: pk.readqc_unpack_into(*packed, qual_bits, *uk),
-                  lambda: pk.readqc_unpack_plain(*packed, qual_bits, *up),
+                  lambda: pk.readqc_unpack_into(*reads_only, qual_bits, *uk),
+                  lambda: pk.readqc_unpack_plain(*reads_only, qual_bits, *up),
                   lambda: (list(uk), list(up)),
-                  bytes=sum(t.numel() for t in packed) + 2 * B * L, ops=2 * B * L)
+                  bytes=sum(t.numel() for t in reads_only) + 2 * n_valid * L,
+                  ops=2 * n_valid * L)
 
     # K1 on what unpack gives it
     ascii_b, ascii_q = u8(), u8()
@@ -523,13 +527,15 @@ def cold_ms(fn: Callable[[], None], runs: int = 20,
             flush_bytes: int = 128 << 20, clean: bool = True) -> float:
     """Device milliseconds of one call that finds its inputs outside the L2
     cache: each call follows an overwrite of a ``flush_bytes`` buffer, with
-    CUDA events around the call alone; the median of ``runs``. The call is
-    queued while the card still works on the overwrite, so the wrapper's
-    host work is not in the time. With ``clean`` the buffer is also read
-    after the overwrite, so the L2 holds clean lines and the call does not
-    pay for writing back the overwrite's dirty ones. Five unrecorded rounds
-    come first: without them the first cold timing in a process came out up
-    to three times the later ones on the H100."""
+    CUDA events around the call alone; the median of ``runs``. With
+    ``clean`` the buffer is also read after the overwrite, so the L2 holds
+    clean lines and the call does not pay for writing back the overwrite's
+    dirty ones. A spin of about half a millisecond on the card follows, so
+    the call is queued before the card is free and the wrapper's host work
+    is not in the time (without it a wrapper with 50 us of Python work came
+    out up to 0.04 ms slow, now and then, on the H100). Five unrecorded
+    rounds come first: without them the first cold timing in a process came
+    out up to three times the later ones on the H100."""
     fn()
     flush = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
     times = []
@@ -538,6 +544,7 @@ def cold_ms(fn: Callable[[], None], runs: int = 20,
         flush.fill_(i & 0xFF)
         if clean:
             flush.max()
+        torch.cuda._sleep(1_000_000)  # clock cycles
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()

@@ -2,7 +2,12 @@
 the ReadQC kernels at their main path's batch shape (B=65536 reads, L=192
 cycles, the bucket of 151 bp reads), K1 also at the edge shapes its paths
 split on (16-byte and byte loads, column passes, partial tiles), with each
-quality profile and random bytes past the reads, SeqPurge's scans at theirs (B=10000
+quality profile and random bytes past the reads, unpack at the edges of its
+paths (L % 16 == 8, views only 4- or 8-byte aligned, inputs at odd offsets,
+8-bit quals up to 222) and tails at the edges of its rules (no reads,
+n_valid past B, len_hist past the shared cap, wrapped sums, sums at exactly
+20 and 60 times the length), the stream step with dirty scratch buffers,
+SeqPurge's scans at theirs (B=10000
 pairs, L=151) and at a ragged shape (B=1237, L=250), with adapters with and
 without N and adapter prefixes of 15 and 20 bases, and the adapter scans at
 the edges of their design (L from 1 to 1000, windows of 1 to 64 bases, random
@@ -16,6 +21,7 @@ and at parameters off the defaults (no trims, N runs of 3 and 6, a window
 of one base, other match percentages and tails). Integer outputs: the
 tolerance is exact equality. Skips where no CUDA device is available."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -131,6 +137,154 @@ def test_unpack_refuses_misaligned_output():
     with pytest.raises(ValueError, match="aligned"):
         pk.readqc_unpack_into(pb, nm, pq, 6, odd, out)
     assert pk.readqc_unpack_into.launches == before
+
+
+def _on_card(t: torch.Tensor, offset: int = 0, slack: int = 0):
+    """``t`` copied to the card ``offset`` elements into a fresh allocation,
+    with ``slack`` elements of 0xA5 bytes after it; returns (the copy, the
+    allocation)."""
+    buf = torch.full((offset + t.numel() + slack,), 0, dtype=t.dtype, device="cuda")
+    buf.view(torch.uint8).fill_(0xA5)
+    return buf[offset:offset + t.numel()].view(t.shape).copy_(t), buf
+
+
+def _packed(B, L, qual_bits, seed):
+    """Random packed reads: any code, about one N in eight, any 6-bit field
+    or 8-bit quals 0..222, 222 among them."""
+    rng = np.random.default_rng(seed)
+    pb = rng.integers(0, 256, (B, L // 4), dtype=np.uint8)
+    nm = (rng.integers(0, 256, (B, L // 8)) & rng.integers(0, 256, (B, L // 8))
+          & rng.integers(0, 256, (B, L // 8))).astype(np.uint8)
+    if qual_bits == 8:
+        pq = rng.integers(0, 223, (B, L), dtype=np.uint8)
+        pq[0, 0] = 222
+    else:
+        pq = rng.integers(0, 256, (B, L // 4 * 3), dtype=np.uint8)
+    return [torch.from_numpy(a) for a in (pb, nm, pq)]
+
+
+def _unpack_both(B, L, qual_bits, seed, in_off=0, out_off=0):
+    from ngsbits_tpu_torch.ops import pallas_kernels as pk
+    packed = [_on_card(t, in_off)[0] for t in _packed(B, L, qual_bits, seed)]
+    outs = [_on_card(torch.zeros((B, L), dtype=torch.uint8), out_off, slack=32)
+            for _ in range(4)]
+    before = pk.readqc_unpack_into.launches
+    pk.readqc_unpack_into(*packed, qual_bits, outs[0][0], outs[1][0])
+    pk.readqc_unpack_plain(*packed, qual_bits, outs[2][0], outs[3][0])
+    torch.cuda.synchronize()
+    assert pk.readqc_unpack_into.launches == before + 1
+    for got, want in ((outs[0], outs[2]), (outs[1], outs[3])):
+        assert torch.equal(got[0], want[0])
+        # nothing written before or after the rows
+        assert (got[1][:out_off] == 0xA5).all() and (got[1][out_off + B * L:] == 0xA5).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qual_bits", [6, 8])
+@pytest.mark.parametrize("B,L", [(1237, 8), (1237, 24), (1237, 200), (1237, 256),
+                                 (10000, 192), (1, 8), (3, 24)])
+def test_unpack_matches_plain_version_at_the_edges(B, L, qual_bits):
+    """unpack on random packed bytes: L % 16 == 8 (an odd last 8 columns when
+    B is odd), 16-column rows, the -qc bucket's 10,000 reads at L=192, and
+    8-bit quals up to 222."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _unpack_both(B, L, qual_bits, seed=B + L)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qual_bits", [6, 8])
+@pytest.mark.parametrize("in_off,out_off", [(0, 4), (0, 8), (1, 0), (2, 8)])
+def test_unpack_at_views_not_16_byte_aligned(in_off, out_off, qual_bits):
+    """Outputs only 4- or 8-byte aligned, packed inputs at odd offsets: the
+    kernel's 8-column and byte paths give what the plain version gives."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _unpack_both(333, 192, qual_bits, seed=in_off + out_off, in_off=in_off, out_off=out_off)
+
+
+def _tail_inputs(B, Lc, seed):
+    """Lengths 0..Lc+59 (past Lc too), some negative and many 151; per-read
+    sums exactly 20*len, 20*len - 1, 60*len, 60*len + 1, any int32 (wrapped
+    sums), small negative ones, and ordinary means."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(0, Lc + 60, B)
+    lengths[rng.random(B) < 0.3] = 151
+    lengths[rng.random(B) < 0.02] = -3
+    k = rng.integers(0, 8, B)
+    mean = lengths * rng.integers(0, 45, B) + rng.integers(0, np.maximum(lengths, 1))
+    rq = np.select([k == 0, k == 1, k == 2, k == 3, k == 4, k == 5],
+                   [20 * lengths, 20 * lengths - 1, 60 * lengths, 60 * lengths + 1,
+                    rng.integers(-2**31, 2**31, B), -rng.integers(0, 1000, B)], mean)
+    rq = (rq.astype(np.int64) & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    return torch.from_numpy(lengths.astype(np.int32)), torch.from_numpy(rq)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n_valid,Lc,offset", [
+    (65536, 65536, 192, 0),   # ReadQC's batch: every row a read
+    (16384, 10000, 192, 0),   # SeqPurge's -qc bucket
+    (4099, 0, 192, 0),        # no reads: bases only
+    (4099, 4099, 64, 1),      # B not a multiple of 4; inputs not 16-byte aligned
+    (4099, 2001, 64, 2),
+    (2050, 2050, 4095, 0),    # the widest len_hist in shared memory
+    (4, 9999, 4096, 0),       # n_valid past B; the narrowest len_hist past the cap
+    (2053, 1999, 5000, 3),    # len_hist by global atomics
+])
+def test_tails_match_plain_version_at_the_edges(B, n_valid, Lc, offset):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ngsbits_tpu_torch.ops import pallas_kernels as pk
+    from ngsbits_tpu_torch.ops import readqc as tops
+    lengths, rq = (_on_card(t, offset)[0] for t in _tail_inputs(B, Lc, seed=B + Lc))
+    carries = []
+    for _ in range(2):
+        g = torch.Generator().manual_seed(5)
+        carry = tops.stream_carry_init(Lc, torch.device("cuda"))
+        for k in pk.TAIL_KEYS:
+            carry[k] += torch.randint(0, 1000, carry[k].shape, generator=g).cuda()
+        carries.append(carry)
+    direction = B % 2
+    before = pk.readqc_tails_into.launches
+    pk.readqc_tails_into(rq, lengths, n_valid, direction, carries[0])
+    pk.readqc_tails_plain(rq, lengths, n_valid, direction, carries[1])
+    torch.cuda.synchronize()
+    assert pk.readqc_tails_into.launches == before + 1
+    for k in pk.TAIL_KEYS:
+        assert torch.equal(carries[0][k], carries[1][k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qual_bits", [6, 8])
+def test_stream_step_with_dirty_scratch_on_card_matches_cpu(qual_bits):
+    """A bucket of 10,000 reads in 16,384 rows, both directions, scratch
+    buffers filled with 0xFF first: the card's carries and unpacked rows
+    equal the CPU route's, and the padding rows keep their 0xFF."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ngsbits_tpu_torch.ops import readqc as tops
+    B, L, n_valid = 16384, 192, 10000
+    bases, quals, lengths, _ = selfcheck.reads(B, L, qual_bits, seed=3, n_valid=n_valid)
+    packed = [torch.from_numpy(a) for a in tops.pack_batch(bases, quals, qual_bits)]
+    rng = np.random.default_rng(4)
+    start = {k: rng.integers(0, 10_000, v.shape) for k, v in
+             tops.carry_to_numpy(tops.stream_carry_init(L, torch.device("cpu"))).items()}
+    carries, scratches = {}, {}
+    for dev in (torch.device("cpu"), torch.device("cuda")):
+        carry = tops.carry_from_numpy(start, dev)
+        scratch = {k: torch.full((B * L,), 0xFF, dtype=torch.uint8, device=dev)
+                   for k in ("bases", "quals")}
+        for direction in (0, 1):
+            tops.stream_step(carry, *(t.to(dev) for t in packed),
+                             torch.from_numpy(lengths).to(dev), n_valid, direction,
+                             qual_bits, scratch)
+        carries[dev.type] = tops.carry_to_numpy(carry)
+        scratches[dev.type] = {k: scratch[k].cpu().view(B, L) for k in ("bases", "quals")}
+    for k in tops.CARRY_KEYS:
+        assert (carries["cuda"][k] == carries["cpu"][k]).all(), k
+    for k in ("bases", "quals"):
+        assert torch.equal(scratches["cuda"][k], scratches["cpu"][k]), k
+        assert (scratches["cuda"][k][n_valid:] == 0xFF).all(), k
 
 
 A1 = b"AGATCGGAAGAGCACACGTCTGAACTCCAGTCA"

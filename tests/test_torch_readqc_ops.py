@@ -179,6 +179,36 @@ def test_stream_step_integer_rules_match_jax(qual_bits):
             np.testing.assert_array_equal(got[k], want[k].astype(np.int64), err_msg=k)
 
 
+@pytest.mark.parametrize("direction", [0, 1])
+@pytest.mark.parametrize("qual_bits", [6, 8])
+def test_stream_step_unpacks_only_reads_into_dirty_scratch(qual_bits, direction):
+    """A bucket with padding rows (n_valid < B) whose scratch buffers were
+    filled with 0xFF first: the carries equal the JAX stream_step's from a
+    shared nonzero carry, so no byte of a padding row is read; unpack wrote
+    the reads' rows and left the padding rows as they were."""
+    n_valid = 300
+    bases, quals, lengths = _bucketed(n_valid, 151, seed=20 + qual_bits + direction,
+                                      long_read=qual_bits == 8)
+    B, L = bases.shape
+    assert n_valid < B and not lengths[n_valid:].any()
+    pb, nm, pq = jops.pack_batch(bases, quals, qual_bits)
+    np_carry = _nonzero_carry(L, seed=13)
+    want = _jax_step(np_carry, pb, nm, pq, lengths, n_valid, direction, qual_bits)
+    carry = tops.carry_from_numpy(np_carry, CPU)
+    scratch = {k: torch.full((B * L,), 0xFF, dtype=torch.uint8) for k in ("bases", "quals")}
+    tops.stream_step(carry, *(torch.from_numpy(x) for x in (pb, nm, pq, lengths)),
+                     n_valid, direction, qual_bits, scratch)
+    got = tops.carry_to_numpy(carry)
+    for k in tops.CARRY_KEYS:
+        np.testing.assert_array_equal(got[k], want[k].astype(np.int64), err_msg=k)
+    mask = np.arange(L)[None, :] < lengths[:n_valid, None]
+    for k, ascii_rows in (("bases", bases), ("quals", quals)):
+        rows = scratch[k].view(B, L).numpy()
+        assert (rows[n_valid:] == 0xFF).all(), k
+        np.testing.assert_array_equal(rows[:n_valid][mask], ascii_rows[:n_valid][mask],
+                                      err_msg=k)
+
+
 @pytest.mark.parametrize("qual_bits", [6, 8])
 def test_unpack_restores_masked_reads(qual_bits):
     bases, quals, lengths = _bucketed(200, 100, seed=5, long_read=qual_bits == 8)
