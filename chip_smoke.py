@@ -102,7 +102,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
             BedCoverage). Each run with counts reset before and read after
             (C1, C2 and R1 or R2 launched), every launch of C2's dense mode,
             R1 and R2 held against its plain version right after it (the
-            checks' time and memory kept out of the run's), the D2H bytes of
+            checks' time and memory kept out of the run's), C2's and R2's
+            device time summed over every launch of the run (CUDA events
+            around each launcher call; ``whole_runs``), the D2H bytes of
             each finalize required to be per-region results; prints reads/s,
             seconds by stage, D2H bytes and the device memory peak. The
             exome and dense outputs must be byte-identical to the JAX
@@ -843,7 +845,12 @@ class _CoverageChecks:
     take and the memory they use are kept out of the tool's: ``seconds`` is
     what they took, ``peak`` the tool's own peak of allocated device
     memory. ``largest`` keeps, for the timings after the run, the inputs of
-    the launch at the largest span of each kernel."""
+    the launch at the largest span of each kernel. ``device`` sums, for C2
+    and R2, the device time of every launch of the run (CUDA events around
+    each call of their launchers in the kernel library: C2's memset and
+    kernel, R2's count pass with its scan and its write pass; a spin of
+    about 0.1 ms queued before each start event keeps the host's work out
+    of the time) and counts the launches."""
 
     def __init__(self, copy_c1: bool = False):
         self.copy_c1 = copy_c1
@@ -853,11 +860,35 @@ class _CoverageChecks:
         self.c1: list = []
         self.largest: dict = {}   # kernel -> (span, inputs)
         self.checked = {"coverage_finalize": 0, "region_sums": 0, "threshold_runs": 0}
+        self.device = {"coverage_finalize": [0.0, 0], "threshold_runs": [0.0, 0]}
+        self._events: list = []   # (kernel, start, end) not yet read
+
+    def _timed(self, name: str, fn, launch: bool = True):
+        """``fn`` with CUDA events around each call, added to ``device[name]``
+        (counted as a launch unless ``launch`` is false)."""
+        def call(*args, **kw):
+            torch.cuda._sleep(200_000)  # clock cycles: the stream stays busy while the host enqueues
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            self._events.append((name, start, end))
+            self.device[name][1] += launch
+            return out
+        return call
+
+    def _read_events(self):
+        for name, start, end in self._events:
+            self.device[name][0] += start.elapsed_time(end)
+        self._events.clear()
 
     def _begin(self) -> float:
         torch.cuda.synchronize()  # the tool's own work, in its time
         self.peak = max(self.peak, torch.cuda.max_memory_allocated() - self.kept_bytes)
-        return time.perf_counter()
+        t0 = time.perf_counter()
+        self._read_events()
+        return t0
 
     def _end(self, t0: float):
         torch.cuda.synchronize()
@@ -936,12 +967,29 @@ class _CoverageChecks:
 
         engine.add, engine.dense = coverage_add, dense_checked
         engine.region_sums, engine.runs = region_sums, runs_checked
+        lib = dr._lib
+        real = lib()
+        timed = {"ngs_coverage_finalize": self._timed("coverage_finalize",
+                                                      real.ngs_coverage_finalize),
+                 "ngs_runs_count": self._timed("threshold_runs", real.ngs_runs_count),
+                 # one launch of threshold_runs: both passes
+                 "ngs_runs_write": self._timed("threshold_runs", real.ngs_runs_write,
+                                               launch=False)}
+
+        class TimedLib:  # the kernel library, with events around C2's and R2's launchers
+            def __getattr__(self, name):
+                return timed.get(name) or getattr(real, name)
+
+        dr._lib = TimedLib
         self.kept_bytes = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         try:
             yield self
         finally:
             engine.add, engine.dense, engine.region_sums, engine.runs = add, dense, sums, runs
+            dr._lib = lib
+            torch.cuda.synchronize()
+            self._read_events()
             self.peak = max(self.peak, torch.cuda.max_memory_allocated() - self.kept_bytes)
 
 
@@ -979,6 +1027,8 @@ def _coverage_run(label: str, args: list[str], reads: int, copy_c1: bool = False
     stages["finalize"] -= checks.seconds
     fetched = sum(b for _, b in tool.finalizes)
     dense = sum(4 * span for span, _ in tool.finalizes)
+    device = ", ".join(f"{k} {ms:.4f} ms in {n} launches" for k, (ms, n) in checks.device.items()
+                       if n)
     print(f"{label}: {args[0]} on {torch.cuda.get_device_name(0)}: {wall:.3f} s, "
           f"{reads / wall:.0f} reads/s; seconds by stage: "
           + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
@@ -988,7 +1038,7 @@ def _coverage_run(label: str, args: list[str], reads: int, copy_c1: bool = False
           f"memory peak {checks.peak / 2**30:.3f} GiB; launches "
           f"{ {k: launches[k] for k in wanted} }; every C2 dense-mode and "
           f"{wanted[2]} launch equal to its plain version (checks {checks.seconds:.2f} s, "
-          f"not in the times)", flush=True)
+          f"not in the times); device time of the run's launches: {device}", flush=True)
     return tool, wall, checks, launches
 
 
@@ -1030,6 +1080,7 @@ def coverage(records: dict, dev: torch.device):
     ]
     kept: dict = {}
     totals: dict = {}
+    whole: dict = {}   # C2's and R2's device time of every launch, a run
     for label, tool_name, panel, flags, against in runs:
         bam_flag = ["-bam", str(bam)]
         card = out / f"{label}.{tool_name}.bed".replace(" ", "_")
@@ -1042,6 +1093,11 @@ def coverage(records: dict, dev: torch.device):
                     and count:
                 by_tool = totals.setdefault(name, {})
                 by_tool[tool_name] = by_tool.get(tool_name, 0) + count
+        for name, (ms, n) in checks.device.items():
+            if n:  # the device time of every launch of the run, summed
+                whole.setdefault(name, []).append(
+                    {"run": f"{label} {tool_name} {' '.join(flags)}".strip(), "ms": ms,
+                     "launches": n})
         for name, (span, inputs) in checks.largest.items():
             key = (name, label)
             if label != "dense" and (key not in kept or span > kept[key][0]):
@@ -1075,6 +1131,8 @@ def coverage(records: dict, dev: torch.device):
     if _jax_loaded():
         raise AssertionError(f"the port loaded {_jax_loaded()}")
     coverage_kernels(records, kept, dev)
+    for name, runs_ms in whole.items():
+        records[name]["whole_runs"] = runs_ms
     for name, by_tool in totals.items():
         rec = records[name]
         rec.setdefault("launches_by_tool", {}).update(by_tool)

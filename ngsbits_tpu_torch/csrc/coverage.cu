@@ -1,6 +1,6 @@
 // Coverage and pileup-count kernels for Hopper (sm_90a): the device side of
-// ngsbits_tpu_torch/ops/device_reduce.py, each a launch (C2 and R2: two) on
-// the caller's stream.
+// ngsbits_tpu_torch/ops/device_reduce.py, each a launch on the caller's
+// stream (C2: a memset of its scratch, then one launch; R2: three).
 //
 //   coverage_add       C1: +1 at diff[start], -1 at diff[end_excl] for each
 //                      span, into a [span + 1] int32 difference array (with
@@ -34,35 +34,62 @@
 // read of a pile): a warp first groups equal indices (__match_any_sync) and
 // one lane adds the group's size, so a hot counter takes one atomic a warp.
 //
-// C2 is bound by bytes: it must read the [span + 1] int32 array once (48 MB
-// at a 12 Mb panel, 1 GB at chr1's whole length). It runs as two passes over
-// tiles of 8192 positions: the first writes each tile's sum, the second
-// gives each tile its prefix (the sum of the sums before it, read from L2),
-// scans the tile in registers and bins every position into a histogram in
-// shared memory. Neighbouring positions have nearly the same depth, so each
-// thread adds a run of equal bins at once. Only the histogram and one count
-// leave the card: a few hundred int64 values in place of the dense coverage.
-// Reading the array twice keeps it at about a fifth of its bound at a 14 Mb
-// panel (PERF.md); it runs once a MappingQC run. The coverage tools ask it
-// for the dense coverage alone: that variant has no histogram in shared
-// memory and no atomics, and writes 4 bytes a position.
+// C2 is bound by bytes: it must read the [span + 1] int32 array once (55 MB
+// at MappingQC's 13.9 Mb panel, 1 GB at chr1's whole length) and, in its
+// dense mode, write the coverage once. It is one pass with a decoupled
+// look-back (Merrill and Garland, "Single-pass Parallel Prefix Scan with
+// Decoupled Look-back", NVIDIA 2016), where a pass of tile sums before the
+// scan would read the array twice, and a block that summed every earlier
+// tile's sum would make the work quadratic in the span. A block takes the
+// next tile of 8192 positions from a counter, so a tile only ever waits on
+// tiles already running. Each warp stages its 1024 positions into shared
+// memory with coalesced 16-byte loads, and each lane takes its 32
+// consecutive ones from there (swizzled: no bank conflicts). The block scans
+// its tile in registers and publishes the tile's sum in a 64-bit status word
+// (a flag and an int32, release and acquire at GPU scope); warp 0 reads the
+// 32 status words before it at once, adds sums back to the nearest inclusive
+// prefix and publishes its own. The look-back's waits still take about a
+// fifth of the time at chr1's length, and more at a few waves of blocks
+// (PERF.md); five blocks of 256 threads an SM (a register cap) keep more
+// loads in flight than four. The status words and the counter are cleared
+// by the launcher (one memset), so a launch on reused scratch, or a graph's
+// replay, starts clean. Every position is then binned into a histogram in
+// shared memory, its bin by a multiply-high with the step's reciprocal and
+// one correction, not a division; neighbouring positions have nearly the
+// same depth, so each thread adds a run of equal bins at once, and only the
+// histogram and one count leave the card. The coverage tools ask for the
+// dense coverage alone: that variant has no histogram and no atomics, and
+// writes the coverage back through the staging buffer with coalesced
+// 16-byte stores.
 //
 // R1 and R2 read the dense coverage where C2 left it, so only per-region
 // results cross PCIe (8 bytes a region; 12 a run) instead of the coverage.
 // Both are bound by bytes, 4 a position of each region. The regions come as
 // int32 starts and the int64 exclusive prefix of their lengths (`offsets`):
-// the concatenated regions are cut into equal tiles of positions, a warp a
-// tile, and a warp finds its tile's first region by a binary search in
-// `offsets`, so one long region is spread over many warps and many short
-// ones share a warp. R1 sums each region's piece of the tile with 16-byte
-// loads, reduces in the warp and adds the int64 piece into the region's
-// total with one atomic (exact in any order). R2 reads a tile 32 positions
-// at a time, a position a lane: a run starts where a position is hit and
-// the one before it (from the neighbouring lane by a shuffle) is not, or
-// is in another region; it ends likewise. The count pass counts starts and
-// ends per tile with ballots; one block scans the tile counts; the write
-// pass writes each run's start (region, position) and end at the scanned
-// offsets, so the k-th start and the k-th end form the k-th run.
+// the concatenated regions are cut into equal tiles of positions, and a
+// tile's first region is found by a search in `offsets`, so one long region
+// is spread over many warps and many short ones share a warp. R1 takes 8192
+// positions a warp, sums each region's piece of its tile with 16-byte loads,
+// reduces in the warp and adds the int64 piece into the region's total with
+// one atomic (exact in any order).
+//
+// R2 reads the coverage once. A warp takes 1024 region positions, a 32-bit
+// mask word a lane. It finds its first region by a search of 32 probes a
+// step, holds the next 32 regions' bounds in its lanes, and walks its tile's
+// pieces (a piece: the part of one region in the tile) with no load of the
+// coverage in the walk; in each piece it loads 8 words' worth of coverage at
+// once (coalesced, 8 loads in flight a lane) and a ballot turns each 32
+// positions into the hit bits of one mask word. The count pass writes the
+// mask (1 bit a region position: 31 MB at chr1 against the coverage's 1 GB)
+// and counts run starts and ends per block from the mask words, their
+// neighbours' bits (a shuffle; two loads at the tile's edges) and the
+// region-start and region-end bits of the walk: a run starts at a hit whose
+// predecessor is not hit or in another region, and ends likewise. One block
+// scans the block counts; the write pass reads only the mask and the
+// regions, and each lane writes the runs of its word at the scanned
+// offsets, so the k-th start and the k-th end form the k-th run. The count
+// pass reads about 2 TB/s at chr1's length (PERF.md); more loads in flight
+// a warp, or more warps, did not make it faster.
 //
 // Each launcher takes raw pointers, sizes and the stream, and returns
 // cudaGetLastError() so the caller can raise on a refused launch.
@@ -79,14 +106,23 @@ constexpr int kAddThreads = 256;
 constexpr int kTileThreads = 256;
 constexpr int kPerThread = 32;                      // positions a thread scans
 constexpr int kTile = kTileThreads * kPerThread;    // 8192 positions a block
+constexpr int kWarpSpan = 32 * kPerThread;          // positions a warp stages
+constexpr int kStageBytes = 4 * kTile;              // C2's staging buffer
 constexpr int kMaxBins = 4096;                      // histogram bins in shared memory
 constexpr int kRegionThreads = 256;                 // R1, R2: 8 warps a block
 constexpr int kSumTile = 8192;                      // R1: region positions a warp sums
-constexpr int kRunSteps = 64;
-constexpr int kRunTile = 32 * kRunSteps;            // R2: region positions a warp walks
-constexpr int kScanThreads = 1024;                  // R2: the block that scans tile counts
+constexpr int kRunWarpSpan = 1024;                  // R2: region positions a warp takes
+constexpr int kRunBlock = kRegionThreads / 32 * kRunWarpSpan;  // R2: ... a block takes
+constexpr int kRunWords = kRunBlock / 32;           // R2: mask words a block
+constexpr int kRunBatch = 8;                        // R2: mask words of loads in flight
+constexpr int kScanThreads = 1024;                  // R2: the block that scans block counts
 
 typedef unsigned long long u64;
+
+// C2's tile status words: a flag in the high half, an int32 in the low one
+// (0: nothing published yet)
+constexpr u64 kAggregate = 1ull << 32;   // the tile's own sum
+constexpr u64 kInclusive = 2ull << 32;   // the sum of the tile and every tile before it
 
 // One atomic per group of equal keys in the warp; key < 0 adds nothing.
 // Every lane of the warp must call it (the callers' loops are warp-uniform).
@@ -143,23 +179,6 @@ bincount_add_kernel(const int* __restrict__ idx, long long n, int size,
 // C2
 // ---------------------------------------------------------------------------
 
-// This thread's kPerThread differences at positions p0.. (0 past the span).
-__device__ __forceinline__ void load_chunk(const int* __restrict__ diff, long long p0,
-                                           int span, bool vec, int (&v)[kPerThread]) {
-    if (vec && p0 + kPerThread <= span) {
-        const int4* src = reinterpret_cast<const int4*>(diff + p0);
-#pragma unroll
-        for (int k = 0; k < kPerThread / 4; ++k) {
-            const int4 q = __ldg(src + k);
-            v[4 * k] = q.x; v[4 * k + 1] = q.y; v[4 * k + 2] = q.z; v[4 * k + 3] = q.w;
-        }
-    } else {
-#pragma unroll
-        for (int k = 0; k < kPerThread; ++k)
-            v[k] = p0 + k < span ? __ldg(diff + p0 + k) : 0;
-    }
-}
-
 template <typename T>
 __device__ __forceinline__ T block_sum(T x, T* shared /* [kTileThreads / 32] */) {
 #pragma unroll
@@ -174,94 +193,193 @@ __device__ __forceinline__ T block_sum(T x, T* shared /* [kTileThreads / 32] */)
     return total;
 }
 
-// Pass 1: the sum of each tile's differences; block 0 also clears the
-// outputs that pass 2 adds into (bins == 0: none).
-__global__ void __launch_bounds__(kTileThreads)
-coverage_tile_sums_kernel(const int* __restrict__ diff, int span, bool vec,
-                          int* __restrict__ tile_sums, int bins,
-                          u64* __restrict__ hist, u64* __restrict__ half) {
-    __shared__ int partial[kTileThreads / 32];
-    if (blockIdx.x == 0 && bins > 0) {
-        for (int b = threadIdx.x; b < bins; b += kTileThreads) hist[b] = 0;
-        if (threadIdx.x == 0) *half = 0;
-    }
-    int v[kPerThread];
-    load_chunk(diff, static_cast<long long>(blockIdx.x) * kTile + threadIdx.x * kPerThread,
-               span, vec, v);
-    int s = 0;
-#pragma unroll
-    for (int k = 0; k < kPerThread; ++k) s += v[k];
-    s = block_sum(s, partial);
-    if (threadIdx.x == 0) tile_sums[blockIdx.x] = s;
+__device__ __forceinline__ u64 load_acquire(const u64* p) {
+    u64 v;
+    asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+    return v;
 }
 
-// Pass 2: prefix sum, histogram, half-depth count, optional dense coverage;
-// without kHist only the dense coverage.
+__device__ __forceinline__ void store_release(u64* p, u64 v) {
+    asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+// The 16-byte slot of a warp's staging buffer that holds its int4 number i
+// (of kWarpSpan / 4): eight lanes reading eight consecutive int4 of one
+// lane's positions, or eight lanes' neighbouring int4, hit eight different
+// bank groups.
+__device__ __forceinline__ int swizzle(int i) {
+    return i ^ ((i >> 3) & 7);
+}
+
+// The sum of the tiles before `tile` (> 0), returned to every thread of the
+// block: warp 0's lanes read the status words of the 32 tiles before the
+// window's end at once, wait until every tile up to the nearest inclusive
+// prefix has published, and add values back to it; without one, the window
+// moves 32 tiles back. Tile 0 publishes its inclusive prefix without
+// waiting, so the walk ends. Lane 0 then publishes this tile's inclusive
+// prefix (`aggregate` its own sum), and `shared` passes the sum to the
+// other warps.
+__device__ __forceinline__ int look_back(u64* status, int tile, int aggregate, int* shared) {
+    const int lane = threadIdx.x & 31;
+    if (threadIdx.x < 32) {
+        int before = 0;
+        for (int end = tile - 1;; end -= 32) {
+            const int j = end - lane;  // lane 0: the nearest tile
+            u64 s = j >= 0 ? load_acquire(status + j) : kInclusive;
+            unsigned inclusive;
+            for (;;) {
+                const unsigned waiting = __ballot_sync(kFull, (s >> 32) == 0);
+                inclusive = __ballot_sync(kFull, (s & kInclusive) != 0);
+                // the lanes up to the nearest inclusive prefix, all without one
+                const unsigned needed = inclusive ? (inclusive & (0u - inclusive)) * 2 - 1 : kFull;
+                if (!(waiting & needed)) break;
+                if ((s >> 32) == 0) s = load_acquire(status + j);
+            }
+            int v = static_cast<int>(static_cast<unsigned>(s));
+            if (inclusive && lane > __ffs(inclusive) - 1) v = 0;  // behind the nearest
+            before += __reduce_add_sync(kFull, v);
+            if (inclusive) break;
+        }
+        if (lane == 0) {
+            store_release(status + tile, kInclusive | static_cast<unsigned>(before + aggregate));
+            *shared = before;
+        }
+    }
+    __syncthreads();
+    return *shared;
+}
+
+// C2 in one pass: the prefix sum of the tile the block takes from `ticket`,
+// with the tiles before it from the status words; then the histogram, the
+// half-depth count and the optional dense coverage; without kHist only the
+// dense coverage. Dynamic shared memory: the staging buffer, then (kHist)
+// `bins` counters.
 template <bool kHist>
-__global__ void __launch_bounds__(kTileThreads)
-coverage_bin_kernel(const int* __restrict__ diff, int span, bool vec,
-                    const int* __restrict__ tile_sums, int step, int hist_max,
-                    int bins, int half_depth, u64* __restrict__ hist,
-                    u64* __restrict__ half, int* __restrict__ cov_out) {
-    __shared__ unsigned sh_hist[kHist ? kMaxBins : 1];
-    __shared__ int partial[kTileThreads / 32];
+__global__ void __launch_bounds__(kTileThreads, 5)
+coverage_scan_kernel(const int* __restrict__ diff, int span, u64* __restrict__ status,
+                     unsigned* __restrict__ ticket, int step, int hist_max, int bins,
+                     int half_depth, u64* __restrict__ hist, u64* __restrict__ half,
+                     int* __restrict__ cov_out, bool vec_out) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    unsigned* sh_hist = reinterpret_cast<unsigned*>(smem + kStageBytes);
+    __shared__ int sh_tile, sh_before;
+    __shared__ int warp_sums[kTileThreads / 32];
     __shared__ unsigned long long partial64[kTileThreads / 32];
-    if (kHist)
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (threadIdx.x == 0) sh_tile = static_cast<int>(atomicAdd(ticket, 1u));
+    if (kHist) {
         for (int b = threadIdx.x; b < bins; b += kTileThreads) sh_hist[b] = 0;
+    }
+    __syncthreads();
+    const int tile = sh_tile;
+    if (kHist && tile == 0) {
+        // the outputs every block adds into: cleared before tile 0 publishes,
+        // which every other block waits to see (directly or through the
+        // prefixes that follow it) before it adds
+        for (int b = threadIdx.x; b < bins; b += kTileThreads) hist[b] = 0;
+        if (threadIdx.x == 0) *half = 0;
+        __threadfence();
+    }
 
-    // this tile's prefix: the sum of the tiles before it
-    int before = 0;
-    for (int t = threadIdx.x; t < static_cast<int>(blockIdx.x); t += kTileThreads)
-        before += __ldg(tile_sums + t);
-    before = block_sum(before, partial);  // its __syncthreads also covers sh_hist
-
-    const long long p0 = static_cast<long long>(blockIdx.x) * kTile + threadIdx.x * kPerThread;
+    // this warp's positions: staged with coalesced 16-byte loads, then each
+    // lane's kPerThread consecutive ones from shared memory
+    const long long w0 = static_cast<long long>(tile) * kTile + warp * kWarpSpan;
+    const long long p0 = w0 + lane * kPerThread;
+    int4* stage = reinterpret_cast<int4*>(smem) + warp * (kWarpSpan / 4);
+    const bool full = w0 + kWarpSpan <= span;
     int v[kPerThread];
-    load_chunk(diff, p0, span, vec, v);
+    if (full) {
+        const int4* src = reinterpret_cast<const int4*>(diff + w0);
+        int4 x[kPerThread / 4];
+#pragma unroll
+        for (int k = 0; k < kPerThread / 4; ++k) x[k] = __ldg(src + lane + 32 * k);
+#pragma unroll
+        for (int k = 0; k < kPerThread / 4; ++k) stage[swizzle(lane + 32 * k)] = x[k];
+        __syncwarp();
+#pragma unroll
+        for (int k = 0; k < kPerThread / 4; ++k) {
+            const int4 q = stage[swizzle(lane * (kPerThread / 4) + k)];
+            v[4 * k] = q.x; v[4 * k + 1] = q.y; v[4 * k + 2] = q.z; v[4 * k + 3] = q.w;
+        }
+    } else {
+#pragma unroll
+        for (int k = 0; k < kPerThread; ++k) v[k] = p0 + k < span ? __ldg(diff + p0 + k) : 0;
+    }
     int mine = 0;
 #pragma unroll
     for (int k = 0; k < kPerThread; ++k) mine += v[k];
 
-    // exclusive scan of the threads' sums: in the warp, then over warps
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    // scan of the threads' sums: in the warp, then over warps; the tile's sum
     int incl = mine;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
         const int y = __shfl_up_sync(kFull, incl, o);
         if (lane >= o) incl += y;
     }
+    if (lane == 31) warp_sums[warp] = incl;
     __syncthreads();
-    if (lane == 31) partial[warp] = incl;
-    __syncthreads();
-    int warp_before = 0;
-    for (int w = 0; w < warp; ++w) warp_before += partial[w];
+    int warp_before = 0, aggregate = 0;
+#pragma unroll
+    for (int w = 0; w < kTileThreads / 32; ++w) {
+        const int s = warp_sums[w];
+        warp_before += w < warp ? s : 0;
+        aggregate += s;
+    }
+    if (threadIdx.x == 0)
+        store_release(status + tile, (tile == 0 ? kInclusive : kAggregate) |
+                                         static_cast<unsigned>(aggregate));
+    int before = 0;
+    if (tile > 0) {
+        before = look_back(status, tile, aggregate, &sh_before);
+        __threadfence();  // what the tiles before published, before this block adds
+    }
     int cov = before + warp_before + incl - mine;
 
-    // walk the positions, adding runs of one bin at once
+    // walk the positions, adding runs of one bin at once. A depth's bin
+    // without a branch: below 0 or from `cut` on dropped (as unsigned, a
+    // negative depth is past any cut), else depth / step by a multiply-high
+    // and one correction, clamped into the last bin.
     const long long last = static_cast<long long>(span) - p0;  // positions of this thread < last
+    const unsigned magic = 0xffffffffu / static_cast<unsigned>(step);  // quotient - 1 or exact
+    const long long cut_depth = max(static_cast<long long>(bins) * step,
+                                    static_cast<long long>(hist_max) + 1);
+    const unsigned cut = static_cast<unsigned>(min(cut_depth, 0x80000000LL));
     unsigned long long at_half = 0;
     int run_bin = -1;
     unsigned run = 0;
 #pragma unroll
     for (int k = 0; k < kPerThread; ++k) {
         cov += v[k];
-        if (k < last) {
-            if (cov_out != nullptr) cov_out[p0 + k] = cov;
-            if (kHist) {
-                at_half += cov >= half_depth;
-                int b = -1;
-                if (cov >= 0) {
-                    b = cov / step;
-                    // above the last bin: clamped into it up to hist_max, dropped beyond
-                    if (b >= bins) b = cov <= hist_max ? bins - 1 : -1;
-                }
-                if (b != run_bin) {
-                    if (run_bin >= 0) atomicAdd(sh_hist + run_bin, run);
-                    run_bin = b;
-                    run = 0;
-                }
-                ++run;
+        v[k] = cov;
+        if (kHist && k < last) {
+            at_half += cov >= half_depth;
+            const unsigned u = static_cast<unsigned>(cov);
+            unsigned q = __umulhi(u, magic);
+            q += u - q * static_cast<unsigned>(step) >= static_cast<unsigned>(step);
+            const int b = u < cut ? min(static_cast<int>(q), bins - 1) : -1;
+            if (b != run_bin) {
+                if (run_bin >= 0) atomicAdd(sh_hist + run_bin, run);
+                run_bin = b;
+                run = 0;
             }
+            ++run;
+        }
+    }
+    if (cov_out != nullptr) {
+        if (full && vec_out) {
+            // each lane overwrites only the slots it read; then coalesced stores
+#pragma unroll
+            for (int k = 0; k < kPerThread / 4; ++k)
+                stage[swizzle(lane * (kPerThread / 4) + k)] =
+                    make_int4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
+            __syncwarp();
+            int4* dst = reinterpret_cast<int4*>(cov_out + w0);
+#pragma unroll
+            for (int k = 0; k < kPerThread / 4; ++k) dst[lane + 32 * k] = stage[swizzle(lane + 32 * k)];
+        } else {
+#pragma unroll
+            for (int k = 0; k < kPerThread; ++k)
+                if (k < last) cov_out[p0 + k] = v[k];
         }
     }
     if (!kHist) return;
@@ -342,86 +460,185 @@ __device__ __forceinline__ bool is_hit(int c, long long cutoff, bool high) {
     return high ? c >= cutoff : c < cutoff;
 }
 
-// R2: warp t walks region positions [t * kRunTile, (t + 1) * kRunTile), a
-// position a lane. Count pass (kWrite false): the numbers of run starts and
-// run ends into scan[t] and scan[tiles + t]. Write pass: scan holds their
-// exclusive prefixes; each start writes (region, position) into out[0][i],
-// out[1][i], each end its position into out[2][i].
+// region_of for a q the whole warp shares: 32 probes a step, so a few steps
+// where a binary search takes log2(n) loads one after another.
+__device__ __forceinline__ int warp_region_of(const long long* __restrict__ offsets, int n,
+                                              long long q) {
+    const int lane = threadIdx.x & 31;
+    int lo = 0, hi = n - 1;  // the region is in [lo, hi]
+    while (lo < hi) {
+        // probes at lo + ceil((hi - lo)(lane + 1) / 32): lane 31's is hi
+        const int at = lo + static_cast<int>((static_cast<long long>(hi - lo) * (lane + 1) + 31) / 32);
+        const int k = __popc(__ballot_sync(kFull, __ldg(offsets + at) <= q));
+        const int at_k = __shfl_sync(kFull, at, k & 31);
+        const int at_below = __shfl_sync(kFull, at, (k + 31) & 31);
+        if (k > 0) lo = at_below;   // lanes < k probe regions starting at or before q
+        if (k < 32) hi = at_k - 1;
+    }
+    return lo;
+}
+
+// R2: warp w of block b takes region positions [q_begin, q_begin + 1024),
+// q_begin = b * kRunBlock + w * kRunWarpSpan, lane l the mask word of
+// positions q_begin + 32l ..; `mask` holds a word for every 32 positions of
+// the blocks' range. Count pass (kWrite false): the hit bits into `mask`,
+// and the block's numbers of run starts and run ends into scan[b] and
+// scan[blocks + b]. Write pass: scan holds their exclusive prefixes; each
+// start writes (region, position) into out[0][i], out[1][i], each end its
+// position into out[2][i]. Both walk the tile's pieces the same way for the
+// region-start and region-end bits; only the count pass reads the coverage.
 template <bool kWrite>
 __global__ void __launch_bounds__(kRegionThreads)
 runs_kernel(const int* __restrict__ cov, const int* __restrict__ starts,
             const long long* __restrict__ offsets, int n, long long cutoff, bool high,
-            int tiles, long long* __restrict__ scan, int n_runs, int* __restrict__ out) {
-    const int t = (blockIdx.x * kRegionThreads + threadIdx.x) >> 5;
-    const int lane = threadIdx.x & 31;
-    if (t >= tiles) return;  // the whole warp
-    const long long total = min(__ldg(offsets + n), static_cast<long long>(tiles) * kRunTile);
-    const long long q_begin = static_cast<long long>(t) * kRunTile;
-    const long long q_end = min(q_begin + kRunTile, total);
-    long long at_begin = kWrite ? scan[t] : 0, at_end = kWrite ? scan[tiles + t] : 0;
-    long long n_begin = 0, n_end = 0;
+            int blocks, unsigned* __restrict__ mask, long long* __restrict__ scan,
+            int n_runs, int* __restrict__ out) {
+    __shared__ int warp_counts[2][kRegionThreads / 32];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const long long total = min(__ldg(offsets + n), static_cast<long long>(blocks) * kRunBlock);
+    const long long q_begin = static_cast<long long>(blockIdx.x) * kRunBlock + warp * kRunWarpSpan;
+    const long long q_end = min(q_begin + kRunWarpSpan, total);
+    const long long word = q_begin / 32 + lane;
+    unsigned hits = 0, region_starts = 0, region_ends = 0;  // this lane's word
+    bool hit_before = false, hit_after = false;  // the positions next to the tile
     if (q_begin < q_end) {
-        int r = region_of(offsets, n, min(q_begin + lane, q_end - 1));
-        long long lo = __ldg(offsets + r), hi = __ldg(offsets + r + 1);
-        long long first = __ldg(starts + r);
-        const unsigned below = (1u << lane) - 1;
-        for (int k = 0; k < kRunSteps && q_begin + 32 * k < q_end; ++k) {
-            const long long q = q_begin + 32 * k + lane;
-            const bool valid = q < q_end;
-            long long p = 0;
-            bool h = false;
-            if (valid) {
-                while (q >= hi) {
-                    ++r;
-                    lo = hi;
-                    hi = __ldg(offsets + r + 1);
-                    first = __ldg(starts + r);
-                }
-                p = first + (q - lo);
-                h = is_hit(__ldg(cov + p), cutoff, high);
+        int r = warp_region_of(offsets, n, q_begin);
+        // regions win .. win + 31: lane j holds offsets[win + j] and starts[win + j]
+        int win = r;
+        long long win_lo = __ldg(offsets + min(win + lane, n));
+        int win_start = __ldg(starts + min(win + lane, n - 1));
+        for (long long q = q_begin;; ++r) {
+            if (r - win >= 31) {
+                win = r;
+                win_lo = __ldg(offsets + min(win + lane, n));
+                win_start = __ldg(starts + min(win + lane, n - 1));
             }
-            // the neighbours' hits; lanes 0 and 31 read theirs across the step
-            bool h_before = __shfl_up_sync(kFull, h, 1);
-            bool h_after = __shfl_down_sync(kFull, h, 1);
-            if (lane == 0) h_before = valid && q > lo && is_hit(__ldg(cov + p - 1), cutoff, high);
-            if (lane == 31) h_after = valid && q + 1 < hi && is_hit(__ldg(cov + p + 1), cutoff, high);
-            const bool begins = h && !(q > lo && h_before);
-            const bool ends = h && !(q + 1 < hi && h_after);
-            const unsigned bb = __ballot_sync(kFull, begins);
-            const unsigned be = __ballot_sync(kFull, ends);
-            if (kWrite) {
-                if (begins) {
-                    const long long i = at_begin + __popc(bb & below);
-                    out[i] = r;
-                    out[n_runs + i] = static_cast<int>(p);
+            const long long lo = __shfl_sync(kFull, win_lo, r - win);
+            const long long hi = __shfl_sync(kFull, win_lo, r - win + 1);
+            const long long qb = min(hi, q_end);
+            if (qb > q) {  // a region of length 0 has no piece
+                const long long at = __shfl_sync(kFull, win_start, r - win) - lo;  // + q: coverage position
+                const int d0 = static_cast<int>(q - q_begin), d1 = static_cast<int>(qb - 1 - q_begin);
+                if (q == lo && lane == (d0 >> 5)) region_starts |= 1u << (d0 & 31);
+                if (qb == hi && lane == (d1 >> 5)) region_ends |= 1u << (d1 & 31);
+                if (!kWrite) {
+                    if (q == q_begin && q > lo && lane == 0)
+                        hit_before = is_hit(__ldg(cov + at + q - 1), cutoff, high);
+                    if (qb == q_end && q_end < hi && lane == 31)
+                        hit_after = is_hit(__ldg(cov + at + q_end), cutoff, high);
+                    for (int w = d0 >> 5; w <= (d1 >> 5); w += kRunBatch) {
+                        int c[kRunBatch];
+                        bool in[kRunBatch];
+#pragma unroll
+                        for (int k = 0; k < kRunBatch; ++k) {
+                            const long long x = q_begin + 32 * (w + k) + lane;
+                            in[k] = x >= q && x < qb;
+                            c[k] = in[k] ? __ldg(cov + at + x) : 0;
+                        }
+#pragma unroll
+                        for (int k = 0; k < kRunBatch; ++k) {
+                            const unsigned b = __ballot_sync(kFull, in[k] && is_hit(c[k], cutoff, high));
+                            if (lane == w + k) hits |= b;
+                        }
+                    }
                 }
-                if (ends) out[2LL * n_runs + at_end + __popc(be & below)] = static_cast<int>(p);
-                at_begin += __popc(bb);
-                at_end += __popc(be);
-            } else {
-                n_begin += __popc(bb);
-                n_end += __popc(be);
+                q = qb;
             }
+            if (q >= q_end) break;
         }
     }
-    if (!kWrite && lane == 0) {
-        scan[t] = n_begin;
-        scan[tiles + t] = n_end;
+    if (kWrite) {
+        hits = mask[word];
+        if (lane == 0 && q_begin > 0 && q_begin < q_end) hit_before = mask[word - 1] >> 31;
+        if (lane == 31 && q_end < total) hit_after = mask[word + 1] & 1u;
+    } else {
+        mask[word] = hits;
+    }
+    // a run starts at a hit whose predecessor is not hit or in another
+    // region, and ends at a hit whose successor is not hit or in another
+    const unsigned up = __shfl_up_sync(kFull, hits, 1), down = __shfl_down_sync(kFull, hits, 1);
+    const unsigned prev = (hits << 1) | (lane == 0 ? static_cast<unsigned>(hit_before) : up >> 31);
+    const unsigned next = (hits >> 1) | ((lane == 31 ? static_cast<unsigned>(hit_after) : down & 1u) << 31);
+    const unsigned begins = hits & ~(prev & ~region_starts);
+    const unsigned ends = hits & ~(next & ~region_ends);
+    const int n_begin = __popc(begins), n_end = __popc(ends);
+    if (!kWrite) {
+        const int wb = __reduce_add_sync(kFull, n_begin), we = __reduce_add_sync(kFull, n_end);
+        if (lane == 0) {
+            warp_counts[0][warp] = wb;
+            warp_counts[1][warp] = we;
+        }
+        __syncthreads();
+        if (threadIdx.x == 0) {
+            long long sb = 0, se = 0;
+            for (int w = 0; w < kRegionThreads / 32; ++w) {
+                sb += warp_counts[0][w];
+                se += warp_counts[1][w];
+            }
+            scan[blockIdx.x] = sb;
+            scan[blocks + blockIdx.x] = se;
+        }
+        return;
+    }
+    // this lane's offsets: the block's, the warps' before it, the lanes' before it
+    int ib = n_begin, ie = n_end;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const int yb = __shfl_up_sync(kFull, ib, o), ye = __shfl_up_sync(kFull, ie, o);
+        if (lane >= o) {
+            ib += yb;
+            ie += ye;
+        }
+    }
+    if (lane == 31) {
+        warp_counts[0][warp] = ib;
+        warp_counts[1][warp] = ie;
+    }
+    __syncthreads();
+    long long at_begin = scan[blockIdx.x] + ib - n_begin;
+    long long at_end = scan[blocks + blockIdx.x] + ie - n_end;
+    for (int w = 0; w < warp; ++w) {
+        at_begin += warp_counts[0][w];
+        at_end += warp_counts[1][w];
+    }
+    unsigned bits = begins | ends;
+    if (bits == 0) return;
+    const long long x0 = q_begin + 32 * lane;
+    int r = region_of(offsets, n, x0 + __ffs(bits) - 1);
+    long long lo = __ldg(offsets + r), hi = __ldg(offsets + r + 1);
+    long long at = __ldg(starts + r) - lo;
+    while (bits) {
+        const int b = __ffs(bits) - 1;
+        bits &= bits - 1;
+        const long long x = x0 + b;
+        while (x >= hi) {
+            ++r;
+            lo = hi;
+            hi = __ldg(offsets + r + 1);
+            at = __ldg(starts + r) - lo;
+        }
+        const int p = static_cast<int>(at + x);
+        if ((begins >> b) & 1u) {
+            out[at_begin] = r;
+            out[n_runs + at_begin] = p;
+            ++at_begin;
+        }
+        if ((ends >> b) & 1u) out[2LL * n_runs + at_end++] = p;
     }
 }
 
-// R2 between its passes: block b turns scan[b * tiles .. (b + 1) * tiles)
-// into its exclusive prefix in place and writes the total at
-// scan[2 * tiles + b], or -1 where the regions hold more positions than
-// the coverage (capacity).
+// R2 between its passes: block b turns scan[b * count .. (b + 1) * count)
+// (the count pass's blocks' numbers of run starts, then of run ends) into
+// its exclusive prefix in place and writes the total at scan[2 * count + b],
+// or -1 where the regions hold more positions than the coverage (capacity).
 __global__ void __launch_bounds__(kScanThreads)
-runs_scan_kernel(long long* __restrict__ scan, int tiles,
+runs_scan_kernel(long long* __restrict__ scan, int count,
                  const long long* __restrict__ offsets, int n, long long capacity) {
     __shared__ long long warp_sums[kScanThreads / 32];
-    long long* a = scan + static_cast<long long>(blockIdx.x) * tiles;
-    const int per = (tiles + kScanThreads - 1) / kScanThreads;
-    const int b = min(static_cast<int>(threadIdx.x) * per, tiles);
-    const int e = min(b + per, tiles);
+    long long* a = scan + static_cast<long long>(blockIdx.x) * count;
+    const int per = (count + kScanThreads - 1) / kScanThreads;
+    const int b = min(static_cast<int>(threadIdx.x) * per, count);
+    const int e = min(b + per, count);
     long long mine = 0;
     for (int i = b; i < e; ++i) mine += a[i];
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -450,7 +667,7 @@ runs_scan_kernel(long long* __restrict__ scan, int tiles,
         run += v;
     }
     if (threadIdx.x == kScanThreads - 1)
-        scan[2LL * tiles + blockIdx.x] = __ldg(offsets + n) > capacity ? -1 : run;
+        scan[2LL * count + blockIdx.x] = __ldg(offsets + n) > capacity ? -1 : run;
 }
 
 int add_grid(long long n) {
@@ -459,8 +676,36 @@ int add_grid(long long n) {
     return static_cast<int>(want < most ? (want > 0 ? want : 1) : most);
 }
 
-int runs_blocks(int tiles) {  // a warp a tile
-    return (tiles + kRegionThreads / 32 - 1) / (kRegionThreads / 32);
+// R2's blocks for regions over a coverage of `positions`, and the int64
+// scratch they take: the mask (kRunWords 32-bit words a block), then the
+// block counts of run starts and of run ends, then the two totals.
+long long runs_blocks(long long positions) {
+    return (positions + kRunBlock - 1) / kRunBlock;
+}
+
+long long runs_scratch(long long blocks) {
+    return blocks * (kRunWords / 2 + 2) + 2;
+}
+
+// R2's count (kWrite false) or write pass on the caller's scratch.
+template <bool kWrite>
+int runs_pass(const void* cov, long long cov_len, const void* starts, const void* offsets,
+              int n, long long cutoff, int is_high, void* scratch, int n_runs, void* out,
+              cudaStream_t s) {
+    const long long blocks = runs_blocks(cov_len);
+    if (n < 1 || blocks < 1 || blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+    unsigned* mask = static_cast<unsigned*>(scratch);
+    long long* scan = static_cast<long long*>(scratch) + blocks * (kRunWords / 2);
+    runs_kernel<kWrite><<<static_cast<int>(blocks), kRegionThreads, 0, s>>>(
+        static_cast<const int*>(cov), static_cast<const int*>(starts),
+        static_cast<const long long*>(offsets), n, cutoff, is_high != 0,
+        static_cast<int>(blocks), mask, scan, n_runs, static_cast<int*>(out));
+    cudaError_t err = cudaGetLastError();
+    if (kWrite || err != cudaSuccess) return static_cast<int>(err);
+    runs_scan_kernel<<<2, kScanThreads, 0, s>>>(scan, static_cast<int>(blocks),
+                                                static_cast<const long long*>(offsets), n,
+                                                cov_len);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -482,31 +727,38 @@ int ngs_bincount_add(const void* idx, long long n, int size, void* counts, void*
     return static_cast<int>(cudaGetLastError());
 }
 
-// tile_sums: scratch of ngs_coverage_tiles(span) int32; cov_out may be null.
-int ngs_coverage_tiles(int span) {
-    return (span + kTile - 1) / kTile;
+// C2's scratch for a span, in int64: a status word a tile of kTile
+// positions, then the counter that hands out the tiles.
+long long ngs_coverage_scratch(int span) {
+    return (static_cast<long long>(span) + kTile - 1) / kTile + 1;
 }
 
+// scratch: ngs_coverage_scratch(span) int64, cleared here; diff 16-byte
+// aligned; cov_out may be null.
 int ngs_coverage_finalize(const void* diff, int span, int step, int hist_max, int bins,
-                          int half_depth, void* tile_sums, void* hist, void* half,
-                          void* cov_out, void* stream) {
+                          int half_depth, void* scratch, void* hist, void* half, void* cov_out,
+                          void* stream) {
     // bins == 0: the dense coverage alone (hist and half unused)
+    const long long tiles = ngs_coverage_scratch(span) - 1;
     if (span < 1 || step < 1 || bins < 0 || bins > kMaxBins ||
-        (bins == 0 && cov_out == nullptr) || (bins > 0 && (hist == nullptr || half == nullptr)))
+        (bins == 0 && cov_out == nullptr) || (bins > 0 && (hist == nullptr || half == nullptr)) ||
+        reinterpret_cast<uintptr_t>(diff) % 16 != 0)
         return static_cast<int>(cudaErrorInvalidValue);
-    const int tiles = ngs_coverage_tiles(span);
-    const bool vec = reinterpret_cast<uintptr_t>(diff) % 16 == 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    coverage_tile_sums_kernel<<<tiles, kTileThreads, 0, s>>>(
-        static_cast<const int*>(diff), span, vec, static_cast<int*>(tile_sums), bins,
-        static_cast<u64*>(hist), static_cast<u64*>(half));
-    cudaError_t err = cudaGetLastError();
+    u64* status = static_cast<u64*>(scratch);
+    cudaError_t err = cudaMemsetAsync(status, 0, (tiles + 1) * sizeof(u64), s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    auto bin = bins > 0 ? coverage_bin_kernel<true> : coverage_bin_kernel<false>;
-    bin<<<tiles, kTileThreads, 0, s>>>(
-        static_cast<const int*>(diff), span, vec, static_cast<const int*>(tile_sums), step,
-        hist_max, bins, half_depth, static_cast<u64*>(hist), static_cast<u64*>(half),
-        static_cast<int*>(cov_out));
+    const size_t smem = kStageBytes + 4 * static_cast<size_t>(bins);
+    auto kernel = bins > 0 ? coverage_scan_kernel<true> : coverage_scan_kernel<false>;
+    if (smem > 48 * 1024) {  // past about 4,070 bins: allowed for this launch
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   static_cast<int>(smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    kernel<<<static_cast<int>(tiles), kTileThreads, smem, s>>>(
+        static_cast<const int*>(diff), span, status, reinterpret_cast<unsigned*>(status + tiles),
+        step, hist_max, bins, half_depth, static_cast<u64*>(hist), static_cast<u64*>(half),
+        static_cast<int*>(cov_out), reinterpret_cast<uintptr_t>(cov_out) % 16 == 0);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -524,40 +776,26 @@ int ngs_region_sums(const void* cov, const void* starts, const void* offsets, in
     return static_cast<int>(cudaGetLastError());
 }
 
-// R2's tiles for regions over a coverage of `positions`: scan holds
-// 2 * tiles + 2 int64.
-int ngs_runs_tiles(long long positions) {
-    return static_cast<int>((positions + kRunTile - 1) / kRunTile);
+// R2's scratch, in int64, for regions over a coverage of `positions`.
+long long ngs_runs_scratch(long long positions) {
+    return runs_scratch(runs_blocks(positions));
 }
 
+// R2's passes on ngs_runs_scratch(cov_len) int64 of scratch; the count pass
+// leaves the totals of run starts and ends in its last two.
 int ngs_runs_count(const void* cov, long long cov_len, const void* starts, const void* offsets,
-                   int n, long long cutoff, int is_high, void* scan, void* stream) {
-    const int tiles = ngs_runs_tiles(cov_len);
-    if (n < 1 || tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    runs_kernel<false><<<runs_blocks(tiles), kRegionThreads, 0, s>>>(
-        static_cast<const int*>(cov), static_cast<const int*>(starts),
-        static_cast<const long long*>(offsets), n, cutoff, is_high != 0, tiles,
-        static_cast<long long*>(scan), 0, nullptr);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    runs_scan_kernel<<<2, kScanThreads, 0, s>>>(static_cast<long long*>(scan), tiles,
-                                                static_cast<const long long*>(offsets), n,
-                                                cov_len);
-    return static_cast<int>(cudaGetLastError());
+                   int n, long long cutoff, int is_high, void* scratch, void* stream) {
+    return runs_pass<false>(cov, cov_len, starts, offsets, n, cutoff, is_high, scratch, 0,
+                            nullptr, static_cast<cudaStream_t>(stream));
 }
 
 // out [3, n_runs] int32: region, first and last position of each run.
 int ngs_runs_write(const void* cov, long long cov_len, const void* starts, const void* offsets,
-                   int n, long long cutoff, int is_high, void* scan, int n_runs, void* out,
+                   int n, long long cutoff, int is_high, void* scratch, int n_runs, void* out,
                    void* stream) {
-    const int tiles = ngs_runs_tiles(cov_len);
-    if (n < 1 || tiles < 1 || n_runs < 1) return static_cast<int>(cudaErrorInvalidValue);
-    runs_kernel<true><<<runs_blocks(tiles), kRegionThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(cov), static_cast<const int*>(starts),
-        static_cast<const long long*>(offsets), n, cutoff, is_high != 0, tiles,
-        static_cast<long long*>(scan), n_runs, static_cast<int*>(out));
-    return static_cast<int>(cudaGetLastError());
+    if (n_runs < 1) return static_cast<int>(cudaErrorInvalidValue);
+    return runs_pass<true>(cov, cov_len, starts, offsets, n, cutoff, is_high, scratch, n_runs,
+                           out, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

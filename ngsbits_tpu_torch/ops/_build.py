@@ -118,20 +118,21 @@ def library() -> ctypes.CDLL:
                                                 i, i, i, i, i, p, p, i, p]
             ll = ctypes.c_longlong
             lib.ngs_coverage_add.argtypes = [p, p, ll, i, p, p]
-            lib.ngs_coverage_tiles.argtypes = [i]
+            lib.ngs_coverage_scratch.argtypes = [i]
             lib.ngs_coverage_finalize.argtypes = [p, i, i, i, i, i, p, p, p, p, p]
             lib.ngs_bincount_add.argtypes = [p, ll, i, p, p]
             lib.ngs_region_sums.argtypes = [p, p, p, i, p, p]
-            lib.ngs_runs_tiles.argtypes = [ll]
+            lib.ngs_runs_scratch.argtypes = [ll]
             lib.ngs_runs_count.argtypes = [p, ll, p, p, i, ll, i, p, p]
             lib.ngs_runs_write.argtypes = [p, ll, p, p, i, ll, i, p, i, p, p]
             for fn in (lib.ngs_readqc_batch, lib.ngs_readqc_unpack,
                        lib.ngs_readqc_tails, lib.ngs_insert_scan,
                        lib.ngs_adapter_evidence, lib.ngs_adapter_scan,
                        lib.ngs_seqpurge_decide, lib.ngs_coverage_add,
-                       lib.ngs_coverage_tiles, lib.ngs_coverage_finalize,
-                       lib.ngs_bincount_add, lib.ngs_region_sums, lib.ngs_runs_tiles,
-                       lib.ngs_runs_count, lib.ngs_runs_write):
+                       lib.ngs_coverage_finalize, lib.ngs_bincount_add,
+                       lib.ngs_region_sums, lib.ngs_runs_count, lib.ngs_runs_write):
                 fn.restype = ctypes.c_int
+            lib.ngs_coverage_scratch.restype = ll
+            lib.ngs_runs_scratch.restype = ll
             _lib = lib
     return _lib

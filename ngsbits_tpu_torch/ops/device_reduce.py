@@ -156,10 +156,11 @@ def coverage_finalize_into(diff: torch.Tensor, step: int, hist_max: int,
             half.zero_()
         return
     lib = _lib()
-    tile_sums = torch.empty(lib.ngs_coverage_tiles(span), dtype=torch.int32,
-                            device=diff.device)
+    # the tiles' status words and the tile counter, cleared by the launcher
+    scratch = torch.empty(lib.ngs_coverage_scratch(span), dtype=torch.int64,
+                          device=diff.device)
     rc = lib.ngs_coverage_finalize(
-        _ptr(diff), span, max(step, 1), hist_max, bins, half_depth, _ptr(tile_sums),
+        _ptr(diff), span, max(step, 1), hist_max, bins, half_depth, _ptr(scratch),
         _optional_ptr(hist), _optional_ptr(half), _optional_ptr(cov), _stream(diff))
     _launched("coverage_finalize", rc)
     coverage_finalize_into.launches += 1
@@ -265,29 +266,30 @@ def threshold_runs_plain(cov, starts, offsets, cutoff, is_high):
 RUNS_COUNT_BYTES = 16  # R2's first fetch: the totals of run starts and ends
 
 
-def runs_scan(cov: torch.Tensor) -> torch.Tensor:
-    """The int64 scratch of R2's count pass for regions over ``cov``: the
-    scanned tile counts of run starts and of run ends, then the two
-    totals."""
-    return torch.empty(2 * _lib().ngs_runs_tiles(cov.shape[0]) + 2, dtype=torch.int64,
+def runs_scratch(cov: torch.Tensor) -> torch.Tensor:
+    """The int64 scratch of R2's passes for regions over ``cov``: the hit
+    mask (a bit a region position), the blocks' counts of run starts and of
+    run ends (scanned in place), then the two totals."""
+    return torch.empty(_lib().ngs_runs_scratch(cov.shape[0]), dtype=torch.int64,
                        device=cov.device)
 
 
-def runs_count(cov, starts, offsets, cutoff, is_high, scan):
-    """R2's first pass (two launches): run starts and ends counted per tile,
-    then scanned; the totals land in ``scan[-2:]`` (-1 when the regions
-    hold more positions than ``cov``)."""
+def runs_count(cov, starts, offsets, cutoff, is_high, scratch):
+    """R2's first pass (two launches): the hit mask, run starts and ends
+    counted per block, then scanned; the totals land in ``scratch[-2:]``
+    (-1 when the regions hold more positions than ``cov``)."""
     rc = _lib().ngs_runs_count(_ptr(cov), cov.shape[0], _ptr(starts), _ptr(offsets),
-                               starts.shape[0], cutoff, int(is_high), _ptr(scan),
+                               starts.shape[0], cutoff, int(is_high), _ptr(scratch),
                                _stream(cov))
     _launched("threshold_runs (count)", rc)
 
 
-def runs_write(cov, starts, offsets, cutoff, is_high, scan, out):
-    """R2's second pass: each tile writes its runs at its scanned offsets
-    into ``out [3, n]``."""
+def runs_write(cov, starts, offsets, cutoff, is_high, scratch, out):
+    """R2's second pass, from the mask and ``offsets`` (the coverage is not
+    read): each block writes its runs at its scanned offsets into
+    ``out [3, n]``."""
     rc = _lib().ngs_runs_write(_ptr(cov), cov.shape[0], _ptr(starts), _ptr(offsets),
-                               starts.shape[0], cutoff, int(is_high), _ptr(scan),
+                               starts.shape[0], cutoff, int(is_high), _ptr(scratch),
                                out.shape[1], _ptr(out), _stream(cov))
     _launched("threshold_runs (write)", rc)
 
@@ -301,25 +303,26 @@ def threshold_runs(cov: torch.Tensor, starts: torch.Tensor, offsets: torch.Tenso
     last position) in region order, then position order. Regions as
     ``region_offsets`` gives them, disjoint and within ``[0, len(cov))``; a
     run never crosses from one region into the next. On the card: a pass
-    that counts run starts and ends per tile and scans the counts, one
-    fetch of the totals (``RUNS_COUNT_BYTES``), and a pass that writes the
-    runs."""
+    that reads the coverage once into a hit mask and counts run starts and
+    ends per block, a scan of the counts, one fetch of the totals
+    (``RUNS_COUNT_BYTES``), and a pass that writes the runs from the
+    mask."""
     cutoff = _clamp_cutoff(cutoff)
     if _route(cov, starts, offsets) == "cpu":
         return threshold_runs_plain(cov, starts, offsets, cutoff, is_high)
     n = _check_regions(cov, starts, offsets)
     if n == 0 or cov.shape[0] == 0:
         return torch.zeros(3, 0, dtype=torch.int32, device=cov.device)
-    scan = runs_scan(cov)
-    runs_count(cov, starts, offsets, cutoff, is_high, scan)
-    n_begin, n_end = scan[-2:].tolist()
+    scratch = runs_scratch(cov)
+    runs_count(cov, starts, offsets, cutoff, is_high, scratch)
+    n_begin, n_end = scratch[-2:].tolist()
     if n_begin < 0:
         _too_many_positions(int(offsets[-1]), cov.shape[0])
     if n_begin != n_end:
         raise RuntimeError(f"threshold_runs: {n_begin} run starts, {n_end} run ends")
     out = torch.empty(3, n_begin, dtype=torch.int32, device=cov.device)
     if n_begin:
-        runs_write(cov, starts, offsets, cutoff, is_high, scan, out)
+        runs_write(cov, starts, offsets, cutoff, is_high, scratch, out)
     threshold_runs.launches += 1
     return out
 

@@ -658,13 +658,13 @@ def threshold_runs_case(cov: torch.Tensor, starts: np.ndarray, ends: np.ndarray,
                 lambda: ([got["kernel"]], [got["plain"]]),
                 bytes=4 * total + 12 * s.shape[0] + 8 + 16 + 12 * n_runs, ops=total)
     if cov.is_cuda:
-        scan = dr.runs_scan(cov)
+        scratch = dr.runs_scratch(cov)
         out = torch.empty(3, max(n_runs, 1), dtype=torch.int32, device=cov.device)
 
         def device_fn():
-            dr.runs_count(cov, s, off, cutoff, is_high, scan)
+            dr.runs_count(cov, s, off, cutoff, is_high, scratch)
             if n_runs:
-                dr.runs_write(cov, s, off, cutoff, is_high, scan, out)
+                dr.runs_write(cov, s, off, cutoff, is_high, scratch, out)
 
         case.device_fn = device_fn
     return case

@@ -27,8 +27,14 @@ tools' kernels (C2's dense mode alone, R1, R2) at their edges (one-base
 regions, regions at both ends and over the whole span, regions that touch,
 cutoffs of 0, negative and above every depth) and at a whole chromosome
 (chr1's 248,956,422 positions, coverage near 30 everywhere, so a region's
-sum passes 2^31). Integer outputs: the tolerance is exact equality. Skips
-where no CUDA device is available."""
+sum passes 2^31); C2's single pass at 64M positions and at chr1's length
+(its look-backs cross waves of blocks), launched twice on one scratch and
+replayed from a CUDA graph; R2 with regions of 1-3 positions at unaligned
+starts, runs across mask words and warps' tiles, and chr1's box as one
+region. Integer outputs: the tolerance is exact equality. Skips where no
+CUDA device is available."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -533,6 +539,14 @@ def _t(a):
     return torch.from_numpy(a).to("cuda")
 
 
+@functools.lru_cache(maxsize=1)
+def _diff(span, pile, seed):
+    """C2's input: the difference array of span // 20 spans and a pile, on
+    the card (kept for the cases that share it; C2 only reads it)."""
+    s, e = selfcheck.coverage_spans(span, max(span // 20, 4), seed=seed, pile=pile)
+    return selfcheck.coverage_diff(s, e, span, torch.device("cuda"))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("span,n,pile", [(1, 0, 0), (5000, 777, 0), (3 * 8192 + 17, 5000, 0),
                                          (3 * 8192 + 17, 5000, 700), (8192, 100_000, 0),
@@ -561,22 +575,62 @@ def test_coverage_add_matches_plain_version(span, n, pile):
                                     (500, 20000, 40, 450), (1, 0, 1, 1)])
 @pytest.mark.parametrize("span,pile", [(1, 0), (8192, 0), (3 * 8192 + 17, 599),
                                        (3 * 8192 + 17, 600), (3 * 8192 + 17, 20001),
-                                       (1_000_003, 2500)])
+                                       (1_000_003, 2500), (64_000_003, 2500)])
 @pytest.mark.parametrize("dense", [False, True])
 def test_coverage_finalize_matches_plain_version(span, pile, params, dense):
     """C2 at tile edges and with coverage at, above and far above the
     histogram's range, for each set of histogram parameters MappingQC uses
     (default, the adaptive steps, cfDNA), with and without the dense
-    coverage."""
+    coverage; at 64M positions the tiles (7,813) far outnumber the blocks
+    resident at once, so look-backs cross waves of blocks."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    s, e = selfcheck.coverage_spans(span, max(span // 20, 4), seed=span + pile, pile=pile)
-    diff = selfcheck.coverage_diff(s, e, span, torch.device("cuda"))
+    diff = _diff(span, pile, span + pile)
     case = selfcheck.coverage_finalize_case(diff, *params, dense=dense)
     case.kernel()
     case.plain()
     torch.cuda.synchronize()
     assert selfcheck.max_abs_err(case) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("span", [8192, 3 * 8192 + 17, 64_000_003])
+@pytest.mark.parametrize("dense", [False, True])
+def test_coverage_finalize_relaunched_on_one_scratch_and_from_a_graph(span, dense):
+    """C2's status words and tile counter are cleared by each launch: two
+    launches on one scratch (left dirty by a fill before the first), and a
+    CUDA graph replayed three times over outputs made dirty between the
+    replays, give the plain version's outputs each time."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ngsbits_tpu_torch.ops.pallas_kernels import _lib, _ptr, _stream
+    diff = _diff(span, 2500, span + 2500)
+    case = selfcheck.coverage_finalize_case(diff, 5, 599, 120, 20, dense=dense)
+    case.plain()
+    got, want = case.outputs()
+    scratch = torch.full((_lib().ngs_coverage_scratch(span),), -1, dtype=torch.int64,
+                         device="cuda")
+    cov = got[2] if dense else None
+    for _ in range(2):
+        for g in got:
+            g.fill_(-3)
+        rc = _lib().ngs_coverage_finalize(_ptr(diff), span, 5, 599, 120, 20, _ptr(scratch),
+                                          _ptr(got[0]), _ptr(got[1]),
+                                          None if cov is None else _ptr(cov), _stream(diff))
+        assert rc == 0
+        torch.cuda.synchronize()
+        assert selfcheck.max_abs_err(case) == 0
+    case.kernel()  # warm-up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        case.kernel()
+    for _ in range(3):
+        for g in got:
+            g.fill_(-3)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert selfcheck.max_abs_err(case) == 0
 
 
 @pytest.mark.gpu
@@ -650,13 +704,14 @@ def _cov(diff):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("span,pile", [(1, 0), (8192, 0), (ODD, 650), (1_000_003, 2500)])
+@pytest.mark.parametrize("span,pile", [(1, 0), (8192, 0), (ODD, 650), (1_000_003, 2500),
+                                       (64_000_003, 2500), (CHR1, 0)])
 def test_coverage_dense_mode_matches_plain_version_and_the_histogram_mode(span, pile):
+    """Up to chr1's whole length (30,391 tiles, many waves of blocks)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from ngsbits_tpu_torch.ops import device_reduce as dr
-    s, e = selfcheck.coverage_spans(span, max(span // 20, 4), seed=span, pile=pile)
-    diff = selfcheck.coverage_diff(s, e, span, torch.device("cuda"))
+    diff = _diff(span, pile, span)
     case = selfcheck.coverage_dense_case(diff)
     before = case.wrapper.launches
     case.kernel()
@@ -692,25 +747,43 @@ def test_region_sums_match_plain_version(span, n, disjoint):
     assert selfcheck.max_abs_err(case) == 0
 
 
+@functools.lru_cache(maxsize=1)
+def _runs_cov(span, n):
+    """R2's coverage: span // 10 spans and a pile of 700, on the card."""
+    s, e = selfcheck.coverage_spans(span, max(span // 10, 4), seed=span + n, pile=700)
+    return _cov(selfcheck.coverage_diff(s, e, span, torch.device("cuda")))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("is_high", [False, True])
 @pytest.mark.parametrize("cutoff", [-1, 0, 1, 20, 700, 10**30])
-@pytest.mark.parametrize("span,n", [(1, 1), (5000, 900), (ODD, 300), (1_000_003, 3000)])
-def test_threshold_runs_match_plain_version(span, n, cutoff, is_high):
+@pytest.mark.parametrize("span,n,max_len", [(1, 1, 400), (5000, 900, 400), (ODD, 300, 400),
+                                            (1_000_003, 3000, 400), (70_001, 25_000, 3),
+                                            (1_000_003, 30, 60_000), (CHR1, 1, 400)])
+def test_threshold_runs_match_plain_version(span, n, max_len, cutoff, is_high):
     """R2 in disjoint regions: runs at region and tile ends, one-base
-    regions, runs over whole regions, no runs at all."""
+    regions, runs over whole regions, no runs at all; regions of 1-3
+    positions at unaligned starts (many to a mask word, past the 32 a warp
+    holds at once); regions of up to 60,000 positions whose runs cross mask
+    words and warps' tiles of 1,024; chr1's whole box as one region."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    s, e = selfcheck.coverage_spans(span, max(span // 10, 4), seed=span + n, pile=700)
-    cov = _cov(selfcheck.coverage_diff(s, e, span, torch.device("cuda")))
-    case = selfcheck.threshold_runs_case(
-        cov, *selfcheck.coverage_regions(span, n, seed=n, disjoint=True), cutoff, is_high)
+    cov = _runs_cov(span, n)
+    regions = selfcheck.coverage_regions(span, n, seed=n, max_len=max_len, disjoint=True)
+    case = selfcheck.threshold_runs_case(cov, *regions, cutoff, is_high)
     before = case.wrapper.launches
     case.kernel()
     case.plain()
     torch.cuda.synchronize()
     assert case.wrapper.launches == before + 1
     assert selfcheck.max_abs_err(case) == 0
+    if max_len == 60_000 and (cutoff, is_high) in ((10**30, False), (-1, True)):
+        region, first, last = case.outputs()[1][0].cpu().numpy().astype(np.int64)
+        from ngsbits_tpu_torch.ops import device_reduce as dr
+        starts, offsets = dr.region_offsets(*regions)
+        q_first = offsets[region] + first - starts[region]
+        q_last = offsets[region] + last - starts[region]
+        assert (q_first // 1024 != q_last // 1024).any()  # a run across two warps' tiles
     case.device_fn()  # the graph-timed launches give the same runs
     torch.cuda.synchronize()
 
