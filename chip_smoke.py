@@ -37,7 +37,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
             The coverage tools' C2 (dense mode alone), R1 and R2 at their
             edges (one-base regions, regions at both ends and over the whole
             span, overlapping and repeated (R1) or disjoint (R2), cutoffs of
-            0, 1, 3, 10^30 and -1).
+            0, 1, 3, 10^30 and -1), and C1's record form on seeded records
+            (every CIGAR op, 0xFF qualities, no SEQ; sorted into a box,
+            unsorted over a sparse panel with N ops across many blocks; with
+            and without -min_baseq).
             K1, unpack and tails also at MappingQC's -read_qc buckets. Times per
             call (``ops/selfcheck.py``): ``ms`` device time (10 calls captured
             in a CUDA graph, replays between CUDA events, median of 5,
@@ -100,21 +103,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
             whole-genome panel (one region a chromosome at GRCh38's lengths:
             24 boxes of up to 248,956,422 positions; BedLowCoverage,
             BedCoverage). Each run with counts reset before and read after
-            (C1, C2 and R1 or R2 launched), every launch of C2's dense mode,
-            R1 and R2 held against its plain version right after it (the
-            checks' time and memory kept out of the run's), C2's and R2's
-            device time summed over every launch of the run (CUDA events
-            around each launcher call; ``whole_runs``), the D2H bytes of
-            each finalize required to be per-region results; prints reads/s,
-            seconds by stage, D2H bytes and the device memory peak. The
-            exome and dense outputs must be byte-identical to the JAX
-            package's host route (scripts/jax_host_route.py, timed beside);
-            the whole-genome ones are held against the port's CPU route on
-            the first 200,000 records with the panel cut to chr1. Then C1
-            at every launch of the exome BedCoverage run (timed at its
-            median) and C2's dense mode, R1 and R2 at the largest box of the
-            exome's and of the whole genome's runs (chr1's whole length),
-            timed. ``--phase coverage`` runs only the kernels and this phase.
+            (C1's record form, C2 and R1 or R2 launched, C1's span form
+            not), every launch of C2's dense mode, R1 and R2 held against
+            its plain version right after it, and in the exome BedCoverage
+            and -min_baseq 20 runs every launch of C1's record form too (the
+            coverage it added against the plain version's on the same
+            records; the checks' time and memory kept out of the run's),
+            C2's, R1's and R2's device time summed over every launch of the
+            run with the bound of that work (CUDA events around each
+            launcher call; ``whole_runs``), the D2H bytes of each finalize
+            required to be per-region results; prints reads/s, seconds by
+            stage, D2H bytes and the device memory peak. The exome and dense
+            outputs must be byte-identical to the JAX package's host route
+            (scripts/jax_host_route.py, timed beside); the whole-genome ones
+            are held against the port's CPU route on the first 200,000
+            records with the panel cut to chr1. Then C1's record form timed
+            at the median launch of each of those two exome runs (warm and
+            cold; the -min_baseq run's is its main shape), and C2's dense
+            mode, R1 and R2 at the largest box of the exome's and of the
+            whole genome's runs (chr1's whole length), timed. ``--phase
+            coverage`` runs only the kernels and this phase.
 
 The CPU route is where the plain kernel versions run; the CPU tests hold them
 against the JAX package. This script imports only torch, numpy, the stdlib and
@@ -171,6 +179,10 @@ KERNELS = {  # name: (source, the TPU/XLA function it replaces)
     # prefix sum and histogram of mapping_stats.py:636-641 and :477), and
     # DeviceBincount (X6 with an empty ends side)
     "coverage_add": ("ngsbits_tpu_torch/csrc/coverage.cu", "ngsbits_tpu/ops/device_reduce.py:77"),
+    # the same X6, with the host's span making and -min_baseq expansion
+    # before it (ngsbits_tpu/qc/coverage.py:243-300, :376-390)
+    "coverage_add_records": ("ngsbits_tpu_torch/csrc/coverage.cu",
+                             "ngsbits_tpu/ops/device_reduce.py:77"),
     "coverage_finalize": ("ngsbits_tpu_torch/csrc/coverage.cu",
                           "ngsbits_tpu/ops/device_reduce.py:128"),
     "bincount_add": ("ngsbits_tpu_torch/csrc/coverage.cu", "ngsbits_tpu/ops/device_reduce.py:135"),
@@ -422,8 +434,28 @@ def coverage_edges(dev: torch.device):
         _check_equal(selfcheck.bincount_case(t(ix), 4 * MQ_ALL_SNPS), label)
         print(f"bincount_add     {label} (size={4 * MQ_ALL_SNPS}, n={len(ix)}): equal",
               flush=True)
-    phase("kernels: the coverage tools' C2 (dense mode), R1 and R2 at their edges (at "
-          "the main path's inputs after the coverage phase)")
+    phase("kernels: the coverage tools' C1 record form, C2 (dense mode), R1 and R2 at "
+          "their edges (at the main path's inputs after the coverage phase)")
+    from ngsbits_tpu_torch.ops import device_reduce as dr
+    rng = np.random.default_rng(27)
+    s = np.cumsum(rng.integers(500, 3000, size=300))
+    e = s + rng.integers(20, 300, size=300)
+    sparse = torch.tensor(np.stack([s, e, np.concatenate(([0], np.cumsum(e - s)[:-1]))]),
+                          device=dev)
+    for label, args, ref, blocks, span in (
+            ("sorted, a box past the reads", dict(n=5000, seed=28, width=30_000), 0,
+             torch.tensor([[9000], [21_000], [0]], device=dev), 12_000),
+            ("unsorted, sparse, N ops over many blocks",
+             dict(n=5000, seed=29, width=int(e[-1]), n_refs=2, ordered=False, long_n=40_000),
+             1, sparse, int((e - s).sum()))):
+        cols = selfcheck.alignment_records(**args)
+        keys = selfcheck.records_keys(cols, (cols["flag"] & 0x704) == 0)
+        rec = dr.upload_records(cols["pos"], keys, cols["cigar_off"], cols["cigar"],
+                                cols["seq_off"], cols["qual"], device=dev)
+        for min_baseq in (0, 20):
+            _check_equal(selfcheck.coverage_add_records_case(rec, 0, len(keys), ref, min_baseq,
+                                                             blocks, span), label)
+        print(f"coverage_add_records {label}, -min_baseq 0 and 20: equal", flush=True)
     for label, (es, ee, sp) in edge_spans.items():
         d = selfcheck.coverage_diff(es, ee, sp, dev)
         _check_equal(selfcheck.coverage_dense_case(d), label)
@@ -841,26 +873,36 @@ class _CoverageChecks:
     (``DeviceCoverage``): every launch of C2's dense mode (``dense``), R1
     (``region_sums``) and R2 (``runs``) is held against its plain version on
     the same inputs right after it (the plain versions count no launch);
-    C1's inputs are copied to the host when ``copy_c1``. The time the checks
-    take and the memory they use are kept out of the tool's: ``seconds`` is
-    what they took, ``peak`` the tool's own peak of allocated device
-    memory. ``largest`` keeps, for the timings after the run, the inputs of
-    the launch at the largest span of each kernel. ``device`` sums, for C2
+    with ``check_c1`` so is every launch of C1's record form
+    (``add_records``: the coverage the launch added to the difference array
+    against the plain version's on the same records), whose inputs are kept
+    in ``c1`` for the timings after the run. The time the checks take and
+    the memory they use are kept out of the tool's: ``seconds`` is what
+    they took (``pass_seconds`` of it during the BAM pass, the rest in the
+    finalize), ``peak`` the tool's own peak of allocated device memory.
+    ``largest`` keeps, for the timings after the run, the inputs of the
+    launch at the largest span of each kernel. ``device`` sums, for C2, R1
     and R2, the device time of every launch of the run (CUDA events around
     each call of their launchers in the kernel library: C2's memset and
-    kernel, R2's count pass with its scan and its write pass; a spin of
-    about 0.1 ms queued before each start event keeps the host's work out
-    of the time) and counts the launches."""
+    kernel, R1's memset and kernel, R2's count pass with its scan and its
+    write pass; a spin of about 0.1 ms queued before each start event keeps
+    the host's work out of the time), counts the launches and adds up the
+    bytes that bound them (as ``ops/selfcheck.py``'s cases count them)."""
 
-    def __init__(self, copy_c1: bool = False):
-        self.copy_c1 = copy_c1
+    def __init__(self, check_c1: bool = False):
+        self.check_c1 = check_c1
         self.seconds = 0.0
+        self.pass_seconds = 0.0   # the part of ``seconds`` taken in the BAM pass (C1's checks)
         self.peak = 0
         self.kept_bytes = 0   # allocated before the run, or kept by the checks
         self.c1: list = []
+        self._c1_buffers: set = set()
         self.largest: dict = {}   # kernel -> (span, inputs)
-        self.checked = {"coverage_finalize": 0, "region_sums": 0, "threshold_runs": 0}
-        self.device = {"coverage_finalize": [0.0, 0], "threshold_runs": [0.0, 0]}
+        self.checked = {"coverage_add_records": 0, "coverage_finalize": 0, "region_sums": 0,
+                        "threshold_runs": 0}
+        # kernel -> [device ms, launches, bytes of the bound]
+        self.device = {"coverage_finalize": [0.0, 0, 0], "region_sums": [0.0, 0, 0],
+                       "threshold_runs": [0.0, 0, 0]}
         self._events: list = []   # (kernel, start, end) not yet read
 
     def _timed(self, name: str, fn, launch: bool = True):
@@ -910,16 +952,38 @@ class _CoverageChecks:
         import numpy as np
         from ngsbits_tpu_torch.ops import device_reduce as dr
         engine = dr.DeviceCoverage
-        add, dense, sums, runs = engine.add, engine.dense, engine.region_sums, engine.runs
+        add, dense, sums, runs = engine.add_records, engine.dense, engine.region_sums, engine.runs
 
-        def coverage_add(eng, starts, ends_excl=None):
-            if self.copy_c1 and len(starts):
-                self.c1.append((np.array(starts, np.int32), None if ends_excl is None
-                                else np.array(ends_excl, np.int32), eng.span))
-            add(eng, starts, ends_excl)
+        def add_checked(eng, rec, r0, r1, ref, min_baseq):
+            if not self.check_c1:
+                return add(eng, rec, r0, r1, ref, min_baseq)
+            seconds = self.seconds
+            t0 = self._begin()
+            before = eng.diff.clone()
+            self.kept_bytes += before.nbytes
+            self._end(t0)
+            add(eng, rec, r0, r1, ref, min_baseq)
+            t0 = self._begin()
+            self.kept_bytes -= before.nbytes
+            want = torch.zeros_like(eng.diff)
+            dr.coverage_add_records_plain(rec, r0, r1, ref, min_baseq, eng.blocks, want)
+            got = torch.cumsum((eng.diff - before)[:-1].to(torch.int64), 0)
+            if not torch.equal(got, torch.cumsum(want[:-1].to(torch.int64), 0)):
+                raise AssertionError(f"coverage_add_records differs from its plain version at "
+                                     f"records [{r0}, {r1}) into a span of {eng.span}")
+            self.checked["coverage_add_records"] += 1
+            del before, want, got
+            buf = rec.pos.untyped_storage()
+            if buf.data_ptr() not in self._c1_buffers:  # a batch's upload, kept once
+                self._c1_buffers.add(buf.data_ptr())
+                self.kept_bytes += buf.nbytes()
+            self.c1.append((rec, r0, r1, ref, min_baseq, eng.blocks, eng.span))
+            self._end(t0)
+            self.pass_seconds += self.seconds - seconds
 
         def dense_checked(eng):
             cov = dense(eng)
+            self.device["coverage_finalize"][2] += 8 * eng.span + 4
             t0 = self._begin()
             want = torch.empty_like(cov)
             dr.coverage_finalize_plain(eng.diff, 1, 0, 0, None, None, want)
@@ -934,6 +998,8 @@ class _CoverageChecks:
 
         def region_sums(eng, starts, ends):
             got = sums(eng, starts, ends)
+            positions = int((np.asarray(ends) - np.asarray(starts) + 1).sum())
+            self.device["region_sums"][2] += 4 * positions + 20 * len(starts) + 8
             t0 = self._begin()
             cov = eng.__dict__.pop("plain_cov")
             s, off = eng._regions(starts, ends)
@@ -951,6 +1017,9 @@ class _CoverageChecks:
 
         def runs_checked(eng, starts, ends, cutoff, is_high):
             got = runs(eng, starts, ends, cutoff, is_high)
+            positions = int((np.asarray(ends) - np.asarray(starts) + 1).sum())
+            self.device["threshold_runs"][2] += (4 * positions + 12 * len(starts) + 8 + 16
+                                                 + 12 * len(got[0]))
             t0 = self._begin()
             cov = eng.__dict__.pop("plain_cov")
             s, off = eng._regions(starts, ends)
@@ -965,18 +1034,19 @@ class _CoverageChecks:
             self._end(t0)
             return got
 
-        engine.add, engine.dense = coverage_add, dense_checked
+        engine.add_records, engine.dense = add_checked, dense_checked
         engine.region_sums, engine.runs = region_sums, runs_checked
         lib = dr._lib
         real = lib()
         timed = {"ngs_coverage_finalize": self._timed("coverage_finalize",
                                                       real.ngs_coverage_finalize),
+                 "ngs_region_sums": self._timed("region_sums", real.ngs_region_sums),
                  "ngs_runs_count": self._timed("threshold_runs", real.ngs_runs_count),
                  # one launch of threshold_runs: both passes
                  "ngs_runs_write": self._timed("threshold_runs", real.ngs_runs_write,
                                                launch=False)}
 
-        class TimedLib:  # the kernel library, with events around C2's and R2's launchers
+        class TimedLib:  # the kernel library, with events around C2's, R1's and R2's launchers
             def __getattr__(self, name):
                 return timed.get(name) or getattr(real, name)
 
@@ -986,7 +1056,8 @@ class _CoverageChecks:
         try:
             yield self
         finally:
-            engine.add, engine.dense, engine.region_sums, engine.runs = add, dense, sums, runs
+            engine.add_records, engine.dense = add, dense
+            engine.region_sums, engine.runs = sums, runs
             dr._lib = lib
             torch.cuda.synchronize()
             self._read_events()
@@ -998,23 +1069,29 @@ def _ends(starts, offsets):
     return starts.astype("int64") + (offsets[1:] - offsets[:-1]) - 1
 
 
-def _coverage_run(label: str, args: list[str], reads: int, copy_c1: bool = False):
+def _coverage_run(label: str, args: list[str], reads: int, check_c1: bool = False):
     """One coverage tool on the card with launch counts reset before and read
-    after and every C2/R1/R2 launch checked: (tool, wall seconds without the
-    checks, checks)."""
-    checks = _CoverageChecks(copy_c1)
+    after and every C2/R1/R2 launch checked, with ``check_c1`` every launch
+    of C1's record form too: (tool, wall seconds without the checks,
+    checks, launches)."""
+    checks = _CoverageChecks(check_c1)
     with checks.installed():
         _reset()
         tool, seconds = _port(args)
         launches = _launches()
-    wanted = ("coverage_add", "coverage_finalize",
+    wanted = ("coverage_add_records", "coverage_finalize",
               "region_sums" if args[0] == "BedCoverage" else "threshold_runs")
     for name in wanted:
         if launches[name] == 0:
             raise AssertionError(f"{name} was not launched by {args[0]} ({label}): {launches}")
+    if launches["coverage_add"]:
+        raise AssertionError(f"{args[0]} ({label}) uploaded spans to C1's span form: {launches}")
     checked = checks.checked["coverage_finalize"], checks.checked[wanted[2]]
     if checked != (launches["coverage_finalize"], launches[wanted[2]]):
         raise AssertionError(f"{label}: {checked} launches checked of {launches}")
+    if check_c1 and checks.checked["coverage_add_records"] != launches[wanted[0]]:
+        raise AssertionError(f"{label}: {checks.checked['coverage_add_records']} C1 launches "
+                             f"checked of {launches[wanted[0]]}")
     from ngsbits_tpu_torch.ops.device_reduce import RUNS_COUNT_BYTES
     per_region = 8 if args[0] == "BedCoverage" else 12  # a region's sum; a run
     extra = 0 if args[0] == "BedCoverage" or not torch.cuda.is_available() else RUNS_COUNT_BYTES
@@ -1024,11 +1101,12 @@ def _coverage_run(label: str, args: list[str], reads: int, copy_c1: bool = False
                                  f"{fetched} bytes, not per-region results")
     wall = seconds - checks.seconds
     stages = tool.seconds
-    stages["finalize"] -= checks.seconds
+    stages["pass"] -= checks.pass_seconds
+    stages["finalize"] -= checks.seconds - checks.pass_seconds
     fetched = sum(b for _, b in tool.finalizes)
     dense = sum(4 * span for span, _ in tool.finalizes)
-    device = ", ".join(f"{k} {ms:.4f} ms in {n} launches" for k, (ms, n) in checks.device.items()
-                       if n)
+    device = ", ".join(f"{k} {ms:.4f} ms in {n} launches (bound {b / PEAK_BYTES * 1e3:.4f} ms)"
+                       for k, (ms, n, b) in checks.device.items() if n)
     print(f"{label}: {args[0]} on {torch.cuda.get_device_name(0)}: {wall:.3f} s, "
           f"{reads / wall:.0f} reads/s; seconds by stage: "
           + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
@@ -1036,9 +1114,11 @@ def _coverage_run(label: str, args: list[str], reads: int, copy_c1: bool = False
           f"their fetch; output: lines and file); D2H of the finalizes {fetched} bytes in "
           f"{len(tool.finalizes)} fetches (the int32 coverage would be {dense}); device "
           f"memory peak {checks.peak / 2**30:.3f} GiB; launches "
-          f"{ {k: launches[k] for k in wanted} }; every C2 dense-mode and "
-          f"{wanted[2]} launch equal to its plain version (checks {checks.seconds:.2f} s, "
-          f"not in the times); device time of the run's launches: {device}", flush=True)
+          f"{ {k: launches[k] for k in wanted} }; every "
+          + ("C1 record-form, " if check_c1 else "")
+          + f"C2 dense-mode and {wanted[2]} launch equal to its plain version (checks "
+          f"{checks.seconds:.2f} s, not in the times); device time of the run's launches: "
+          f"{device}", flush=True)
     return tool, wall, checks, launches
 
 
@@ -1080,30 +1160,32 @@ def coverage(records: dict, dev: torch.device):
     ]
     kept: dict = {}
     totals: dict = {}
-    whole: dict = {}   # C2's and R2's device time of every launch, a run
+    whole: dict = {}   # C2's, R1's and R2's device time of every launch, a run
+    c1_runs: dict = {}  # C1's record form: run -> the inputs of each launch
     for label, tool_name, panel, flags, against in runs:
         bam_flag = ["-bam", str(bam)]
         card = out / f"{label}.{tool_name}.bed".replace(" ", "_")
         args = [tool_name, *bam_flag, "-in", str(panel), "-out", str(card), *flags]
-        first_exome = label == "exome" and tool_name == "BedCoverage"
+        run_name = f"{label} {tool_name} {' '.join(flags)}".strip()
+        check_c1 = label == "exome" and (tool_name == "BedCoverage" or "-min_baseq" in flags)
         tool, wall, checks, launches = _coverage_run(f"{label} {' '.join(flags)}".strip(),
-                                                     args, reads, copy_c1=first_exome)
+                                                     args, reads, check_c1=check_c1)
         for name, count in launches.items():
-            if name in ("coverage_add", "coverage_finalize", "region_sums", "threshold_runs") \
-                    and count:
+            if name in ("coverage_add_records", "coverage_finalize", "region_sums",
+                        "threshold_runs") and count:
                 by_tool = totals.setdefault(name, {})
                 by_tool[tool_name] = by_tool.get(tool_name, 0) + count
-        for name, (ms, n) in checks.device.items():
+        for name, (ms, n, nbytes) in checks.device.items():
             if n:  # the device time of every launch of the run, summed
                 whole.setdefault(name, []).append(
-                    {"run": f"{label} {tool_name} {' '.join(flags)}".strip(), "ms": ms,
-                     "launches": n})
+                    {"run": run_name, "ms": ms, "launches": n,
+                     "bound_ms": nbytes / PEAK_BYTES * 1e3})
         for name, (span, inputs) in checks.largest.items():
             key = (name, label)
             if label != "dense" and (key not in kept or span > kept[key][0]):
                 kept[key] = (span, inputs, f"{label} {tool_name}")
-        if first_exome:
-            kept["coverage_add"] = checks.c1
+        if check_c1:
+            c1_runs[run_name] = checks.c1
         if against == "jax":
             jax_out = card.with_suffix(".jax.bed")
             jax_s = _jax_route([tool_name, *bam_flag, "-in", str(panel), "-out",
@@ -1130,7 +1212,7 @@ def coverage(records: dict, dev: torch.device):
         del checks
     if _jax_loaded():
         raise AssertionError(f"the port loaded {_jax_loaded()}")
-    coverage_kernels(records, kept, dev)
+    coverage_kernels(records, kept, c1_runs, dev)
     for name, runs_ms in whole.items():
         records[name]["whole_runs"] = runs_ms
     for name, by_tool in totals.items():
@@ -1139,31 +1221,28 @@ def coverage(records: dict, dev: torch.device):
         rec["launches"] = sum(rec["launches_by_tool"].values())
 
 
-def coverage_kernels(records: dict, kept: dict, dev: torch.device):
-    """C1 at the median launch of the exome BedCoverage run (each of its
-    launches checked), C2's dense mode, R1 and R2 at the largest box the
-    exome's and the whole genome's runs gave them (the latter chr1's whole
-    length, their main shape): checked again and timed."""
+def coverage_kernels(records: dict, kept: dict, c1_runs: dict, dev: torch.device):
+    """C1's record form at the median launch (by records in its range) of
+    each run in ``c1_runs`` (each of their launches was checked during the
+    run; the -min_baseq run's is the main shape), C2's dense mode, R1 and R2
+    at the largest box the exome's and the whole genome's runs gave them
+    (the latter chr1's whole length, their main shape): checked again and
+    timed."""
     from ngsbits_tpu_torch.ops import selfcheck
-    phase("kernels: the coverage tools' C1, C2 (dense mode), R1 and R2 at the coverage "
-          "phase's inputs")
-    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    adds = [(t(s), t(e), span) for s, e, span in kept.pop("coverage_add")]
-    for k, (s, e, span) in enumerate(adds):
-        _check_equal(selfcheck.coverage_add_case(s, e, span), f"launch {k}")
-    n_spans = [s.shape[0] for s, _, _ in adds]
-    print(f"coverage_add: equal at each of the exome BedCoverage run's {len(adds)} launches "
-          f"({min(n_spans)}-{max(n_spans)} spans)", flush=True)
-    k, (s, e, span) = _median_launch(adds, lambda a: a[0].shape[0])
-    idx_both = torch.cat([s, e]).to(torch.int64)
-    signs = torch.cat([torch.ones_like(s), -torch.ones_like(e)])
-    lib_diff = torch.zeros(span + 1, dtype=torch.int32, device=s.device)
-    main = "ms" not in records.get("coverage_add", {})
-    _record(records, selfcheck.coverage_add_case(s, e, span),
-            f"BedCoverage exome, launch {k} of {len(adds)} (median): {s.shape[0]} spans "
-            f"into a span of {span}", main, cold=True,
-            library=lambda: lib_diff.index_add_(0, idx_both, signs))
-    del adds
+    phase("kernels: the coverage tools' C1 record form, C2 (dense mode), R1 and R2 at the "
+          "coverage phase's inputs")
+    for run_name, launches in c1_runs.items():
+        k, (rec, r0, r1, ref, min_baseq, blocks, span) = _median_launch(
+            launches, lambda a: a[2] - a[1])
+        case = selfcheck.coverage_add_records_case(rec, r0, r1, ref, min_baseq, blocks, span)
+        got = _record(records, case, f"{run_name}, launch {k} of {len(launches)} (median): "
+                      f"records [{r0}, {r1}) of a batch of {rec.pos.shape[0]}, "
+                      f"{int((rec.keep[r0:r1] == ref).sum())} kept, into {blocks.shape[1]} "
+                      f"block(s) of {span} positions", min_baseq > 0, cold=True)
+        records["coverage_add_records"].setdefault("shapes", []).append(got)
+        del case, launches
+    c1_runs.clear()
+    torch.cuda.empty_cache()
     c2_timed = "ms" in records.get("coverage_finalize", {})  # at MappingQC's launch
     for (name, panel), (span, inputs, label) in kept.items():
         if name == "coverage_finalize":

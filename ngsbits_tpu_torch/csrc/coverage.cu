@@ -8,6 +8,14 @@
 //                      sort-and-search of the XLA `_cov_eval_fn` in
 //                      ngsbits_tpu/ops/device_reduce.py, behind
 //                      DeviceCoverage)
+//   coverage_add_records  C1's record form: a batch's alignment records
+//                      (positions, CIGARs, with -min_baseq qualities) walked
+//                      on the card into the same difference array, mapped
+//                      into a dense box or a panel's merged blocks (replaces
+//                      the same sort-and-search together with the host's
+//                      span making and -min_baseq expansion before it,
+//                      `_expand_baseq_positions` and `_compute_chr_coverage`
+//                      in ngsbits_tpu/qc/coverage.py)
 //   coverage_finalize  C2: prefix sum of the difference array, then the depth
 //                      histogram of ngsbits_tpu/qc/mapping_stats.py
 //                      (`_depth_histogram_metrics`) and the count of
@@ -33,6 +41,28 @@
 // warp hit one counter (a read start shared by duplicates, a SNP under every
 // read of a pile): a warp first groups equal indices (__match_any_sync) and
 // one lane adds the group's size, so a hot counter takes one atomic a warp.
+//
+// C1's record form takes what the host used to expand. Without -min_baseq
+// a thread walks a record's CIGAR and adds its reference span. With it a
+// warp takes a record: its lanes scan the record's ops (32 at a time) for
+// their reference and query offsets, a lane adds each D or N op, and the
+// warp walks each M, = or X op in groups of five steps of 32 bases, every
+// quality byte of a group loaded (coalesced) before any is tested; a
+// ballot of `qual >= min_baseq` a step (the previous step's last bit
+// carried in) gives the differences of the counted bases' mask, so a run of
+// k counted bases is one +1 and one -1, where the host expansion made k
+// unit spans. A boundary at genomic position x goes to the number of
+// accumulator positions before x: clamped into a box, or, in a panel's
+// merged blocks, found by a binary search, so a span over gaps and many
+// blocks is still two boundaries, and a run outside adds nothing; an op
+// that lies in one block (most do) maps its boundaries by their offset
+// there. Its bound by bytes (4 a CIGAR word, 1 a quality) is a few
+// microseconds, and it takes about thirty times that at a batch of the
+// exome BAM: a record's chain of dependent loads (key, offsets, CIGAR,
+// block search, qualities), its instructions and its scattered atomics.
+// Neither a shared-memory window for the atomics, nor a warp taking a run
+// of neighbouring records and trying its last block first, nor loading an
+// op's qualities before its search was faster (PERF.md).
 //
 // C2 is bound by bytes: it must read the [span + 1] int32 array once (55 MB
 // at MappingQC's 13.9 Mb panel, 1 GB at chr1's whole length) and, in its
@@ -116,6 +146,7 @@ constexpr int kRunBlock = kRegionThreads / 32 * kRunWarpSpan;  // R2: ... a bloc
 constexpr int kRunWords = kRunBlock / 32;           // R2: mask words a block
 constexpr int kRunBatch = 8;                        // R2: mask words of loads in flight
 constexpr int kScanThreads = 1024;                  // R2: the block that scans block counts
+constexpr int kMatchSteps = 5;                      // C1 records: 32-base steps loaded at once
 
 typedef unsigned long long u64;
 
@@ -172,6 +203,189 @@ bincount_add_kernel(const int* __restrict__ idx, long long n, int size,
             if (k >= size) k = -1;  // outside the counters: the contract excludes it
         }
         warp_grouped_add(counts, k, 1);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// C1's record form
+// ---------------------------------------------------------------------------
+
+// BAM's CIGAR ops M I D N S H P = X (0-8), as bit masks: those that consume
+// the reference, those that consume the query, and the aligned bases that
+// -min_baseq tests. Codes 9-15 consume nothing.
+constexpr unsigned kRefOps = 0x18Du;     // M D N = X
+constexpr unsigned kQueryOps = 0x193u;   // M I S = X
+constexpr unsigned kMatchOps = 0x181u;   // M = X
+
+// The accumulator's positions: blocks of genomic positions [bs[j], be[j])
+// (0-based, sorted, disjoint), block j at offset off[j] of the difference
+// array of `span` positions; a dense box is one block.
+struct Blocks {
+    const long long* bs;
+    const long long* be;
+    const long long* off;
+    int n;
+    int span;
+
+    // the first block that ends past x (n: none)
+    __device__ __forceinline__ int find(long long x) const {
+        int lo = 0, hi = n;
+        while (lo < hi) {
+            const int mid = (lo + hi) >> 1;
+            if (__ldg(be + mid) > x) hi = mid;
+            else lo = mid + 1;
+        }
+        return lo;
+    }
+
+    // The number of accumulator positions before genomic position x, given
+    // j = find(x): where a run's boundary at x goes. A run [a, b) then adds
+    // +1 at index(a) and -1 at index(b), which covers exactly its positions
+    // inside the blocks; outside them index(a) == index(b).
+    __device__ __forceinline__ int index(long long x, int j) const {
+        if (j >= n) return span;
+        const long long d = x - __ldg(bs + j);
+        const long long i = __ldg(off + j) + (d > 0 ? d : 0);
+        return i < 0 ? 0 : (i < span ? static_cast<int>(i) : span);
+    }
+
+    __device__ __forceinline__ int index(long long x) const { return index(x, find(x)); }
+};
+
+__device__ __forceinline__ void add_run(const Blocks& g, long long a, long long b, int* diff) {
+    const int ia = g.index(a), ib = g.index(b);
+    if (ia != ib) {
+        atomicAdd(diff + ia, 1);
+        atomicAdd(diff + ib, -1);
+    }
+}
+
+// Without -min_baseq: a thread a record, its reference span [pos, pos +
+// the lengths of M, D, N, = and X). Records whose key is not `ref` (the
+// host's filter, or another chromosome) add nothing.
+__global__ void __launch_bounds__(kAddThreads)
+coverage_records_kernel(const int* __restrict__ pos, const int* __restrict__ keep,
+                        const long long* __restrict__ cigar_off,
+                        const unsigned* __restrict__ cigar, int r0, int r1, int ref, Blocks g,
+                        int* __restrict__ diff) {
+    const long long stride = static_cast<long long>(gridDim.x) * kAddThreads;
+    for (long long r = r0 + static_cast<long long>(blockIdx.x) * kAddThreads + threadIdx.x;
+         r < r1; r += stride) {
+        if (__ldg(keep + r) != ref) continue;
+        const long long c1 = __ldg(cigar_off + r + 1);
+        long long len = 0;
+        for (long long c = __ldg(cigar_off + r); c < c1; ++c) {
+            const unsigned w = __ldg(cigar + c);
+            if ((kRefOps >> (w & 0xF)) & 1) len += w >> 4;
+        }
+        const long long a = __ldg(pos + r);
+        add_run(g, a, a + len, diff);
+    }
+}
+
+// Whether each lane's base of a group of kMatchSteps steps of 32 bases,
+// from base g0 of an op of m bases, counts: its quality at or above
+// min_baseq as an unsigned byte. `qp` points at the op's first quality byte
+// and `avail` bytes of the record follow it; a base past them has no
+// quality (no SEQ) and counts, as the byte 0xFF ("no qualities") does, and
+// no other record's bytes are read. Every load is issued before any is
+// tested.
+__device__ __forceinline__ void load_group(bool (&counts)[kMatchSteps],
+                                           const unsigned char* __restrict__ qp, int avail,
+                                           int m, int g0, int min_baseq) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int k = 0; k < kMatchSteps; ++k) {
+        const int i = g0 + 32 * k + lane;
+        counts[k] = i < m && (i < avail ? static_cast<int>(__ldg(qp + i)) : 0xFF) >= min_baseq;
+    }
+}
+
+// The counted bases of one M, = or X op of `len` bases, the first at
+// genomic position a and query offset qa of a record with n quality bytes
+// at q, added by the whole warp (its arguments warp-uniform) as the
+// differences of their mask: +1 where a counted base follows one that is
+// not, -1 where a base that is not counted (or the op's end) follows one
+// that is, so a run of counted bases is one +1 and one -1 and a lane adds
+// at most one of them a step; a ballot a step, its last bit carried into the
+// next.
+__device__ __forceinline__ void add_match_runs(const Blocks& g, long long a, long long len,
+                                               const unsigned char* __restrict__ q, long long n,
+                                               long long qa, int min_baseq, int* diff) {
+    const int lane = threadIdx.x & 31;
+    // when the whole op lies in one block, a boundary's index is its offset
+    // there, with no search; an op with no accumulator position is skipped
+    const int j = g.find(a);
+    const bool inside = j < g.n && __ldg(g.bs + j) <= a && a + len <= __ldg(g.be + j);
+    if (!inside && g.index(a, j) == g.index(a + len)) return;
+    const int at = inside ? static_cast<int>(__ldg(g.off + j) + a - __ldg(g.bs + j)) : 0;
+    const int m = static_cast<int>(len);  // < 2^28
+    const long long left = n - qa;
+    const int avail = left <= 0 ? 0 : (left < m ? static_cast<int>(left) : m);
+    const unsigned char* qp = q + (qa < n ? qa : n);
+    unsigned carry = 0;
+    for (int g0 = 0; g0 <= m; g0 += 32 * kMatchSteps) {  // the op's end is a boundary too
+        bool counts[kMatchSteps];
+        load_group(counts, qp, avail, m, g0, min_baseq);
+#pragma unroll
+        for (int k = 0; k < kMatchSteps; ++k) {
+            const unsigned bits = __ballot_sync(kFull, counts[k]);
+            const int d = static_cast<int>((bits >> lane) & 1) -
+                          static_cast<int>((((bits << 1) | carry) >> lane) & 1);
+            carry = bits >> 31;
+            const int i = g0 + 32 * k + lane;
+            if (d != 0) atomicAdd(diff + (inside ? at + i : g.index(a + i)), d);
+        }
+    }
+}
+
+// With -min_baseq: a warp a record. The lanes take 32 ops at a time and
+// scan their reference and query lengths for each op's offsets; a lane adds
+// its D or N op whole (always covered), then the warp walks each M, = or X
+// op.
+__global__ void __launch_bounds__(kAddThreads)
+coverage_records_baseq_kernel(const int* __restrict__ pos, const int* __restrict__ keep,
+                              const long long* __restrict__ cigar_off,
+                              const unsigned* __restrict__ cigar,
+                              const long long* __restrict__ qual_off,
+                              const unsigned char* __restrict__ qual, int r0, int r1, int ref,
+                              int min_baseq, Blocks g, int* __restrict__ diff) {
+    const int lane = threadIdx.x & 31;
+    const long long warps = (static_cast<long long>(gridDim.x) * kAddThreads) >> 5;
+    for (long long r = r0 + ((static_cast<long long>(blockIdx.x) * kAddThreads + threadIdx.x) >> 5);
+         r < r1; r += warps) {
+        if (__ldg(keep + r) != ref) continue;  // warp-uniform
+        const long long c_end = __ldg(cigar_off + r + 1);
+        const long long q0 = __ldg(qual_off + r);
+        const long long n = __ldg(qual_off + r + 1) - q0;
+        long long ref_at = __ldg(pos + r), q_at = 0;  // where the next 32 ops begin
+        for (long long c = __ldg(cigar_off + r); c < c_end; c += 32) {
+            const unsigned word = c + lane < c_end ? __ldg(cigar + c + lane) : 0u;
+            const unsigned op = word & 0xF;  // past the ops: M of length 0
+            const long long len = word >> 4;
+            const long long rl = (kRefOps >> op) & 1 ? len : 0;
+            const long long ql = (kQueryOps >> op) & 1 ? len : 0;
+            long long rs = rl, qs = ql;  // inclusive scans over the lanes that hold ops
+            const long long ops = c_end - c;
+            for (int o = 1; o < ops && o < 32; o <<= 1) {
+                const long long ru = __shfl_up_sync(kFull, rs, o);
+                const long long qu = __shfl_up_sync(kFull, qs, o);
+                if (lane >= o) {
+                    rs += ru;
+                    qs += qu;
+                }
+            }
+            const long long op_ref = ref_at + rs - rl, op_q = q_at + qs - ql;
+            if (op == 2 || op == 3) add_run(g, op_ref, op_ref + len, diff);
+            for (unsigned m = __ballot_sync(kFull, ((kMatchOps >> op) & 1) && len > 0); m;
+                 m &= m - 1) {
+                const int src = __ffs(m) - 1;
+                add_match_runs(g, __shfl_sync(kFull, op_ref, src), __shfl_sync(kFull, len, src),
+                               qual + q0, n, __shfl_sync(kFull, op_q, src), min_baseq, diff);
+            }
+            ref_at += __shfl_sync(kFull, rs, 31);
+            q_at += __shfl_sync(kFull, qs, 31);
+        }
     }
 }
 
@@ -718,6 +932,35 @@ int ngs_coverage_add(const void* starts, const void* ends, long long n, int span
     coverage_add_kernel<<<add_grid(n), kAddThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(starts), static_cast<const int*>(ends), n, span,
         static_cast<int*>(diff));
+    return static_cast<int>(cudaGetLastError());
+}
+
+// C1's record form: records [r0, r1) whose key is `ref`; blocks int64
+// [3, n_blocks] (starts, ends, offsets); qual_off and qual are read only
+// with min_baseq > 0.
+int ngs_coverage_add_records(const void* pos, const void* keep, const void* cigar_off,
+                             const void* cigar, const void* qual_off, const void* qual, int r0,
+                             int r1, int ref, int min_baseq, const void* blocks, int n_blocks,
+                             int span, void* diff, void* stream) {
+    if (r0 < 0 || r1 < r0 || n_blocks < 1 || span < 0 ||
+        (min_baseq > 0 && (qual_off == nullptr || qual == nullptr)))
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (r0 == r1) return static_cast<int>(cudaSuccess);
+    const long long* b = static_cast<const long long*>(blocks);
+    const Blocks g{b, b + n_blocks, b + 2LL * n_blocks, n_blocks, span};
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const long long n = static_cast<long long>(r1) - r0;
+    if (min_baseq > 0)
+        coverage_records_baseq_kernel<<<add_grid(32 * n), kAddThreads, 0, s>>>(
+            static_cast<const int*>(pos), static_cast<const int*>(keep),
+            static_cast<const long long*>(cigar_off), static_cast<const unsigned*>(cigar),
+            static_cast<const long long*>(qual_off), static_cast<const unsigned char*>(qual), r0,
+            r1, ref, min_baseq, g, static_cast<int*>(diff));
+    else
+        coverage_records_kernel<<<add_grid(n), kAddThreads, 0, s>>>(
+            static_cast<const int*>(pos), static_cast<const int*>(keep),
+            static_cast<const long long*>(cigar_off), static_cast<const unsigned*>(cigar), r0, r1,
+            ref, g, static_cast<int*>(diff));
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -118,6 +118,8 @@ def library() -> ctypes.CDLL:
                                                 i, i, i, i, i, p, p, i, p]
             ll = ctypes.c_longlong
             lib.ngs_coverage_add.argtypes = [p, p, ll, i, p, p]
+            lib.ngs_coverage_add_records.argtypes = [p, p, p, p, p, p, i, i, i, i, p, i,
+                                                     i, p, p]
             lib.ngs_coverage_scratch.argtypes = [i]
             lib.ngs_coverage_finalize.argtypes = [p, i, i, i, i, i, p, p, p, p, p]
             lib.ngs_bincount_add.argtypes = [p, ll, i, p, p]
@@ -129,6 +131,7 @@ def library() -> ctypes.CDLL:
                        lib.ngs_readqc_tails, lib.ngs_insert_scan,
                        lib.ngs_adapter_evidence, lib.ngs_adapter_scan,
                        lib.ngs_seqpurge_decide, lib.ngs_coverage_add,
+                       lib.ngs_coverage_add_records,
                        lib.ngs_coverage_finalize, lib.ngs_bincount_add,
                        lib.ngs_region_sums, lib.ngs_runs_count, lib.ngs_runs_write):
                 fn.restype = ctypes.c_int

@@ -11,7 +11,13 @@ exact in any order:
 
 - C1 ``coverage_add_into``: +1 at ``diff[start]``, -1 at ``diff[end_excl]``
   into a ``[span + 1]`` int32 difference array (without ends: unit spans at
-  the starts, ``-min_baseq``'s per-base positions);
+  the starts), for MappingQC's spans;
+- C1's record form ``coverage_add_records_into``: a BAM batch's records
+  (``Records``: positions, CIGARs and, for ``-min_baseq``, qualities, all
+  uploaded at once by ``upload_records``) walked on the card into the same
+  difference array, their spans (or their runs of bases at or above
+  ``-min_baseq``, and their D and N ops) mapped into a dense box or a
+  panel's merged blocks, for the coverage tools;
 - C2 ``coverage_finalize_into``: its prefix sum, binned into the depth
   histogram of ``qc/mapping_stats.py::_depth_histogram_metrics`` (bins of
   ``cov // step``; values above the last bin clamped into it up to
@@ -30,7 +36,8 @@ binary search in ``offsets``.
 
 Each wrapper follows the port's dispatch rule (``ops/pallas_kernels.py``):
 tensors on the CPU take the plain version (``index_add_`` and ``cumsum``
-for C1 and C2, ``cumsum`` and differences for R1, masks and ``nonzero`` for
+for C1 and C2, the per-base expansion and ``index_add_`` for C1's record
+form, ``cumsum`` and differences for R1, masks and ``nonzero`` for
 R2, ``torch.bincount`` for B1), tensors on a CUDA device launch the kernel
 on the current stream after checking device, dtype, shape and contiguity,
 or raise. Each counts its launches in ``launches``. The engines take the
@@ -44,6 +51,7 @@ kernel that may still be running.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -94,6 +102,189 @@ def coverage_add_into(starts: torch.Tensor, ends: torch.Tensor | None,
 
 
 coverage_add_into.launches = 0
+
+
+# --------------------------------------------------------------------------
+# C1's record form: a batch's alignment records into the difference array
+# --------------------------------------------------------------------------
+
+# BAM's CIGAR ops M I D N S H P = X (0-8): those that consume the reference,
+# those that consume the query, and the aligned bases that -min_baseq tests;
+# codes 9-15 consume nothing
+_CIGAR_REF = (1, 0, 1, 1, 0, 0, 0, 1, 1) + (0,) * 7
+_CIGAR_QUERY = (1, 1, 0, 0, 1, 0, 0, 1, 1) + (0,) * 7
+_CIGAR_MATCH = (1, 0, 0, 0, 0, 0, 0, 1, 1) + (0,) * 7
+_ALIGN = 16  # bytes: where each column starts in the upload
+
+
+class Records(NamedTuple):
+    """One BAM batch's alignment columns on a device, as C1's record form
+    takes them: int32 ``pos [N]`` (0-based leftmost), int32 ``keep [N]``
+    (a record's key: its ``ref_id`` where the host's filter keeps it, else
+    -1), int64 ``cigar_off [N + 1]`` into the int32 ``cigar`` words (BAM's
+    ``len << 4 | op``), and for ``-min_baseq`` int64 ``qual_off [N + 1]``
+    into the uint8 ``qual`` bytes (None without)."""
+    pos: torch.Tensor
+    keep: torch.Tensor
+    cigar_off: torch.Tensor
+    cigar: torch.Tensor
+    qual_off: torch.Tensor | None = None
+    qual: torch.Tensor | None = None
+
+
+def _check_offsets(name: str, off: np.ndarray, n: int, size: int):
+    if len(off) != n + 1 or off[0] < 0 or off[-1] > size or (np.diff(off) < 0).any():
+        raise ValueError(f"{name}: {len(off)} offsets into {size} entries are not "
+                         f"{n + 1} non-decreasing offsets within them")
+
+
+def upload_records(pos: np.ndarray, keep: np.ndarray, cigar_off: np.ndarray,
+                   cigar: np.ndarray, qual_off: np.ndarray | None = None,
+                   qual: np.ndarray | None = None,
+                   device: torch.device | None = None) -> Records:
+    """A batch's columns (``Records``' types; ``cigar`` as BAM's uint32
+    words) on ``device`` in one copy: one host buffer with each column at a
+    16-byte aligned offset, and views of its copy. The offsets are checked
+    on the host first, so the kernel reads only inside its columns."""
+    n = len(pos)
+    _check_offsets("cigar_off", np.asarray(cigar_off), n, len(cigar))
+    cols = [np.asarray(pos, dtype=np.int32), np.asarray(keep, dtype=np.int32),
+            np.asarray(cigar_off, dtype=np.int64),
+            np.asarray(cigar, dtype=np.uint32).view(np.int32)]
+    if len(cols[1]) != n:
+        raise ValueError(f"keep: {len(cols[1])} keys for {n} records")
+    if qual is not None:
+        _check_offsets("qual_off", np.asarray(qual_off), n, len(qual))
+        cols += [np.asarray(qual_off, dtype=np.int64), np.asarray(qual, dtype=np.uint8)]
+    at = np.cumsum([0] + [-(-c.nbytes // _ALIGN) * _ALIGN for c in cols])
+    buf = np.empty(int(at[-1]), dtype=np.uint8)
+    for c, a in zip(cols, at):
+        buf[a:a + c.nbytes] = c.view(np.uint8)
+    dev = default_device() if device is None else torch.device(device)
+    got = torch.from_numpy(buf).to(dev)
+    views = [got[a:a + c.nbytes].view(torch.from_numpy(c[:0]).dtype)
+             for c, a in zip(cols, at)]
+    return Records(*views)
+
+
+def _table(values: tuple, op: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(values, dtype=torch.int64, device=op.device)[op]
+
+
+def _exclusive_in_segments(v: torch.Tensor, first: torch.Tensor,
+                           seg: torch.Tensor) -> torch.Tensor:
+    """The sums of ``v`` before each element within its segment (``seg``:
+    the segment of each element, ``first``: each segment's first element)."""
+    before = torch.cumsum(v, 0) - v
+    return before - before[first[seg]]
+
+
+def _flat_index(blocks: torch.Tensor, span: int, x: torch.Tensor) -> torch.Tensor:
+    """The number of accumulator positions before each genomic position
+    ``x``: where a run's boundary at ``x`` goes in the difference array
+    (``blocks`` as ``coverage_add_records_into`` takes them)."""
+    bs, be, off = blocks
+    n = bs.shape[0]
+    j = torch.searchsorted(be, x, right=True)
+    jj = j.clamp(max=n - 1)
+    inside = (off[jj] + (x - bs[jj]).clamp(min=0)).clamp(max=span)
+    return torch.where(j < n, inside, span)
+
+
+def coverage_add_records_plain(rec: Records, r0, r1, ref, min_baseq, blocks, diff):
+    dev = diff.device
+    span = diff.shape[0] - 1
+    r = torch.arange(r0, r1, device=dev)
+    r = r[rec.keep[r0:r1] == ref]
+    c0 = rec.cigar_off[r]
+    n_ops = rec.cigar_off[r + 1] - c0
+    rec_of = torch.repeat_interleave(torch.arange(r.shape[0], device=dev), n_ops)
+    first = torch.cumsum(n_ops, 0) - n_ops
+    word = rec.cigar[c0[rec_of] + torch.arange(rec_of.shape[0], device=dev)
+                     - first[rec_of]].to(torch.int64) & 0xFFFFFFFF
+    op, length = word & 0xF, word >> 4
+    ref_len = length * _table(_CIGAR_REF, op)
+    pos = rec.pos[r].to(torch.int64)
+    if min_baseq <= 0:  # a record's reference span
+        starts = pos
+        ends = pos + torch.zeros_like(pos).index_add_(0, rec_of, ref_len)
+    else:
+        ref_at = pos[rec_of] + _exclusive_in_segments(ref_len, first, rec_of)
+        q_at = _exclusive_in_segments(length * _table(_CIGAR_QUERY, op), first, rec_of)
+        dn = (op == 2) | (op == 3)  # D, N: always covered
+        m = (_table(_CIGAR_MATCH, op) == 1) & (length > 0)
+        # every base of the M, = and X ops: its position, query offset and record
+        m_len = length[m]
+        op_of = torch.repeat_interleave(torch.arange(m_len.shape[0], device=dev), m_len)
+        within = (torch.arange(op_of.shape[0], device=dev)
+                  - (torch.cumsum(m_len, 0) - m_len)[op_of])
+        x = ref_at[m][op_of] + within
+        qi = q_at[m][op_of] + within
+        rb = r[rec_of[m]][op_of]
+        q0 = rec.qual_off[rb]
+        has = qi < rec.qual_off[rb + 1] - q0  # past the record's bytes: no quality
+        q = torch.full_like(qi, 0xFF)
+        q[has] = rec.qual[(q0 + qi)[has]].to(torch.int64)
+        x = x[q >= min_baseq]
+        starts = torch.cat([ref_at[dn], x])
+        ends = torch.cat([ref_at[dn] + length[dn], x + 1])
+    ones = torch.ones(starts.shape[0], dtype=diff.dtype, device=dev)
+    diff.index_add_(0, _flat_index(blocks, span, starts), ones)
+    diff.index_add_(0, _flat_index(blocks, span, ends), -ones)
+
+
+def coverage_add_records_into(rec: Records, r0: int, r1: int, ref: int, min_baseq: int,
+                              blocks: torch.Tensor, diff: torch.Tensor) -> None:
+    """C1's record form, the counterpart of the host's span making and
+    ``-min_baseq`` expansion (``ngsbits_tpu/qc/coverage.py:243-300``,
+    ``:376-390``) and of X6 after them: for each record ``r0 <= r < r1``
+    whose key ``rec.keep[r]`` is ``ref``, adds into the int32 ``[span +
+    1]`` difference array its reference span ``[pos, pos + the lengths of
+    its M, D, N, = and X ops)``, or with ``min_baseq > 0`` its D and N ops
+    and the runs of its M, = and X bases whose quality is at least
+    ``min_baseq`` (unsigned bytes; a base past the record's quality bytes
+    has none and counts, as 0xFF does). Positions map into the accumulator's
+    ``blocks``, int64 ``[3, n]``: genomic starts and exclusive ends
+    (0-based, sorted, disjoint) and each block's offset in the array (a
+    dense box is one block); a run adds +1 and -1 at the number of
+    accumulator positions before its start and its end, so the coverage
+    ``cumsum(diff)[:span]`` counts its positions inside the blocks. Only
+    that coverage is the contract, not the difference array."""
+    with_qual = min_baseq > 0
+    if with_qual and (rec.qual_off is None or rec.qual is None):
+        raise ValueError("min_baseq > 0 needs the records' qualities")
+    n = rec.pos.shape[0]
+    if not 0 <= r0 <= r1 <= n:
+        raise ValueError(f"records [{r0}, {r1}) of a batch of {n}")
+    tensors = (rec.pos, rec.keep, rec.cigar_off, rec.cigar, blocks, diff) + (
+        (rec.qual_off, rec.qual) if with_qual else ())
+    if _route(*tensors) == "cpu":
+        return coverage_add_records_plain(rec, r0, r1, ref, min_baseq, blocks, diff)
+    _check("pos", rec.pos, torch.int32, (n,))
+    _check("keep", rec.keep, torch.int32, (n,))
+    _check("cigar_off", rec.cigar_off, torch.int64, (n + 1,))
+    _check("cigar", rec.cigar, torch.int32, (rec.cigar.shape[0],))
+    if with_qual:
+        _check("qual_off", rec.qual_off, torch.int64, (n + 1,))
+        _check("qual", rec.qual, torch.uint8, (rec.qual.shape[0],))
+    n_blocks = blocks.shape[1] if blocks.dim() == 2 else 0
+    if n_blocks < 1:
+        raise ValueError(f"blocks: shape {tuple(blocks.shape)}, expected (3, n) with n >= 1")
+    _check("blocks", blocks, torch.int64, (3, n_blocks))
+    _check("diff", diff, torch.int32, (diff.shape[0],))
+    if r0 == r1:
+        return
+    rc = _lib().ngs_coverage_add_records(
+        _ptr(rec.pos), _ptr(rec.keep), _ptr(rec.cigar_off), _ptr(rec.cigar),
+        _optional_ptr(rec.qual_off if with_qual else None),
+        _optional_ptr(rec.qual if with_qual else None), r0, r1, int(ref),
+        min(int(min_baseq), 256), _ptr(blocks), n_blocks, diff.shape[0] - 1, _ptr(diff),
+        _stream(diff))
+    _launched("coverage_add_records", rc)
+    coverage_add_records_into.launches += 1
+
+
+coverage_add_records_into.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -371,19 +562,36 @@ def _upload(rows: list[np.ndarray], dev: torch.device) -> torch.Tensor:
 class DeviceCoverage:
     """Coverage of one span (positions 0..span-1), its difference array on
     the device: ``add`` scatters each batch of spans at once (C1);
+    ``add_records`` walks a batch's alignment records on the device (C1's
+    record form), into ``blocks`` of genomic positions given at set-up;
     ``histogram`` returns the depth histogram and the half-depth count (C2);
     ``region_sums`` (C2's dense mode, then R1) and ``runs`` (then R2) return
     per-region results; ``coverage_at`` and ``finalize`` take the dense
     coverage from the same dense mode. ``fetched`` counts the bytes copied
     back to the host."""
 
-    def __init__(self, span: int, device: torch.device | None = None):
+    def __init__(self, span: int, device: torch.device | None = None,
+                 blocks: np.ndarray | None = None):
+        """``blocks`` (optional): int64 ``[2, n]``, the genomic starts and
+        exclusive ends (0-based, sorted, disjoint) of the positions the span
+        holds, in order (a dense box is one block), for ``add_records``;
+        uploaded here once, with each block's offset."""
         if span + 1 > INT32_LIMIT:
             raise ValueError(f"span {span}: int32 coordinates need span < 2^31 - 1")
         self.span = span
         self.device = default_device() if device is None else torch.device(device)
         self.diff = torch.zeros(span + 1, dtype=torch.int32, device=self.device)
         self.fetched = 0
+        self.blocks = None
+        if blocks is not None:
+            bs, be = np.asarray(blocks, dtype=np.int64)
+            lengths = be - bs
+            if not len(bs) or lengths.min() < 1 or (bs[1:] < be[:-1]).any() or \
+                    lengths.sum() != span:
+                raise ValueError(f"blocks must be sorted, disjoint and non-empty, "
+                                 f"and hold the span's {span} positions")
+            off = np.concatenate(([0], np.cumsum(lengths)[:-1]))
+            self.blocks = torch.from_numpy(np.stack([bs, be, off])).to(self.device)
 
     def add(self, starts: np.ndarray, ends_excl: np.ndarray | None = None):
         """Adds the half-open spans ``[starts[i], ends_excl[i])``, or without
@@ -403,6 +611,13 @@ class DeviceCoverage:
         else:
             se = _upload([s, e], self.device)
             coverage_add_into(se[0], se[1], self.diff)
+
+    def add_records(self, rec: Records, r0: int, r1: int, ref: int, min_baseq: int):
+        """Adds the records ``r0 <= r < r1`` of a batch whose key is ``ref``
+        (``coverage_add_records_into``) at the positions of ``blocks``."""
+        if self.blocks is None:
+            raise ValueError("add_records needs the coverage's blocks of positions")
+        coverage_add_records_into(rec, r0, r1, ref, min_baseq, self.blocks, self.diff)
 
     def _fetch(self, t: torch.Tensor) -> np.ndarray:
         out = t.cpu().numpy()

@@ -16,7 +16,8 @@ the edges of its contract.
 MappingQC's (C1, C2, B1) on ``coverage_spans`` and ``pileup_indices``;
 ``coverage_dense_case`` (C2 without its histogram), ``region_sums_case``
 (R1) and ``threshold_runs_case`` (R2) the coverage tools', on
-``coverage_regions``.
+``coverage_regions``; ``coverage_add_records_case`` their C1 record form,
+on ``alignment_records`` (a BAM batch's columns with every CIGAR op).
 ``max_abs_err`` compares the two after both ran once. Each case also counts
 the work the function must do on its inputs: ``bytes`` (each input read once,
 each output written once; for K1 only the bytes inside the reads) and ``ops``
@@ -668,6 +669,95 @@ def threshold_runs_case(cov: torch.Tensor, starts: np.ndarray, ends: np.ndarray,
 
         case.device_fn = device_fn
     return case
+
+
+# BAM's CIGAR ops M I D N S H P = X, drawn with these weights
+_OP_WEIGHTS = np.array([0.40, 0.08, 0.08, 0.06, 0.08, 0.05, 0.03, 0.11, 0.11])
+_QUERY_OPS = np.array([1, 1, 0, 0, 1, 0, 0, 1, 1], dtype=bool)
+_MATCH_OPS = np.array([1, 0, 0, 0, 0, 0, 0, 1, 1], dtype=bool)
+
+
+def alignment_records(n: int, seed: int = 0, start: int = 0, width: int = 20_000,
+                      n_refs: int = 1, ordered: bool = True, long_n: int = 0,
+                      no_seq: float = 0.02, no_qual: float = 0.05, max_ops: int = 8):
+    """``n`` alignment records as numpy columns of a BAM batch (``ref_id``,
+    ``pos``, ``flag``, ``mapq``, ``l_seq``, ``n_cigar``, ``cigar``,
+    ``cigar_off``, ``qual``, ``seq_off``): positions over ``[start, start +
+    width)`` on ``n_refs`` chromosomes, coordinate-sorted unless not
+    ``ordered``; 1 to ``max_ops`` CIGAR ops a record (a few none), every op (M I D N S H P
+    = X) with lengths 1-40, N ops up to ``long_n`` bases (when given);
+    qualities 0-41, a share ``no_qual`` of the records all 0xFF ("no
+    qualities") and a share ``no_seq`` with no SEQ (``l_seq`` 0 though
+    their CIGAR has M ops); some duplicates, secondary, supplementary and
+    unmapped records and MAPQ 0, which the tools' filter drops."""
+    rng = np.random.default_rng(seed)
+    n_ops = rng.integers(1, max_ops + 1, size=n)
+    n_ops[rng.random(n) < 0.02] = 0
+    total = int(n_ops.sum())
+    op = rng.choice(9, size=total, p=_OP_WEIGHTS)
+    length = rng.integers(1, 41, size=total)
+    if long_n:
+        is_n = op == 3
+        length[is_n] = rng.integers(1, long_n + 1, size=int(is_n.sum()))
+    cigar = (length.astype(np.uint32) << 4) | op.astype(np.uint32)
+    cigar_off = np.concatenate(([0], np.cumsum(n_ops))).astype(np.int64)
+    rec_of = np.repeat(np.arange(n), n_ops)
+    qlen = np.bincount(rec_of, weights=length * _QUERY_OPS[op], minlength=n).astype(np.int64)
+    l_seq = np.where(rng.random(n) < no_seq, 0, qlen).astype(np.int32)
+    seq_off = np.concatenate(([0], np.cumsum(l_seq))).astype(np.int64)
+    qual = rng.integers(0, 42, size=int(seq_off[-1])).astype(np.uint8)
+    for r in np.flatnonzero(rng.random(n) < no_qual):
+        qual[seq_off[r]:seq_off[r + 1]] = 0xFF
+    ref_id = rng.integers(0, n_refs, size=n).astype(np.int32)
+    pos = rng.integers(start, start + width, size=n).astype(np.int32)
+    if ordered:
+        order = np.lexsort((pos, ref_id))
+        ref_id, pos = ref_id[order], pos[order]
+    flag = rng.choice(np.array([0, 0x400, 0x100, 0x800, 0x4, 0x2, 0x1, 0x10], np.uint16),
+                      size=n, p=[0.5, 0.05, 0.03, 0.02, 0.02, 0.2, 0.1, 0.08])
+    mapq = np.where(rng.random(n) < 0.05, 0, rng.integers(1, 61, size=n)).astype(np.uint8)
+    return dict(ref_id=ref_id, pos=pos, flag=flag, mapq=mapq, l_seq=l_seq,
+                n_cigar=n_ops.astype(np.int32), cigar=cigar, cigar_off=cigar_off,
+                qual=qual, seq_off=seq_off)
+
+
+def records_keys(cols: dict, keep: np.ndarray) -> np.ndarray:
+    """C1's record form's keys: a record's ``ref_id`` where ``keep``, else
+    -1."""
+    return np.where(keep, cols["ref_id"], -1).astype(np.int32)
+
+
+def coverage_add_records_case(rec: dr.Records, r0: int, r1: int, ref: int,
+                              min_baseq: int, blocks: torch.Tensor, span: int) -> Case:
+    """C1's record form adding records ``[r0, r1)`` with key ``ref`` into a
+    ``[span + 1]`` difference array at ``blocks`` (int64 ``[3, n]``). The
+    outputs compared are the coverages (prefix sums of the arrays): where a
+    run of bases goes in as one span on the card, the plain version adds its
+    positions one by one. Bytes: what the kernel must read once: 4 a
+    record's key, 4 a kept record's position, 8 an offset of its CIGAR (and
+    of its qualities), 4 a CIGAR word, with ``min_baseq`` one quality byte a
+    base of its M, = and X ops, and the blocks (atomics not counted);
+    operations: an addition a CIGAR word and a compare a quality byte."""
+    dk, dp = (torch.zeros(span + 1, dtype=torch.int32, device=rec.pos.device)
+              for _ in range(2))
+    keys = rec.keep[r0:r1].cpu().numpy()
+    kept = np.flatnonzero(keys == ref) + r0
+    off = rec.cigar_off.cpu().numpy()
+    words = int((off[kept + 1] - off[kept]).sum())
+    match_bases = 0
+    if min_baseq > 0 and len(kept):
+        cig = rec.cigar.cpu().numpy().view(np.uint32)
+        at = np.concatenate([np.arange(off[r], off[r + 1]) for r in kept]).astype(np.int64)
+        op = cig[at] & 0xF
+        match_bases = int(((cig[at] >> 4) * (op < 9) * _MATCH_OPS[np.minimum(op, 8)]).sum())
+    offsets = 8 * (len(kept) + 1) * (2 if min_baseq > 0 else 1)
+    nbytes = 4 * (r1 - r0) + 4 * len(kept) + offsets + 4 * words + match_bases + 24 * blocks.shape[1]
+    return Case("coverage_add_records", dr.coverage_add_records_into,
+                lambda: dr.coverage_add_records_into(rec, r0, r1, ref, min_baseq, blocks, dk),
+                lambda: dr.coverage_add_records_plain(rec, r0, r1, ref, min_baseq, blocks, dp),
+                lambda: ([torch.cumsum(dk[:span].to(torch.int64), 0)],
+                         [torch.cumsum(dp[:span].to(torch.int64), 0)]),
+                bytes=nbytes, ops=words + match_bases)
 
 
 def pileup_indices(n_snps: int, n: int, seed: int = 0, hot: int = 0):

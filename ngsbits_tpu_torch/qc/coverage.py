@@ -26,9 +26,13 @@ WorkerAverageCoverage.cpp:
 A chromosome's regions are one dense box (``_ChrCoverage``: the box from the
 first region's start to the last one's end) or, when they cover a small part
 of a large box, the flattened regions (``_ChrCoverageSparse``), by the JAX
-package's rule (``_make_acc``). The sparse route maps each batch's genomic
-spans to flattened coordinates on the host before C1, as the JAX package's
-host route does, so the device only sees coordinates inside its array.
+package's rule (``_make_acc``). Either is a ``DeviceCoverage`` whose blocks of
+genomic positions (the box; the merged regions) are uploaded once. The BAM
+pass filters each batch on the host (flags, MAPQ, the chromosome), uploads
+the batch's positions, CIGARs and keys, with ``-min_baseq`` its qualities
+too, in one copy, and launches C1's record form once per chromosome of the
+batch: the card walks the CIGARs, applies ``-min_baseq`` and maps the spans
+into the box or the flattened regions.
 """
 
 from __future__ import annotations
@@ -40,12 +44,9 @@ import numpy as np
 
 from ..core.chromosome import Chromosome
 from ..core.intervals import BedFile, BedLine
-from ..io.bam import (BamBatch, BamReader, CIGAR_CONSUMES_REF, FLAG_DUPLICATE,
-                      FLAG_PROPER_PAIR, FLAG_SECONDARY, FLAG_SUPPLEMENTARY,
-                      FLAG_UNMAPPED)
-from ..ops.device_reduce import DeviceCoverage
-
-_QUERY_CONSUMES = np.array([1, 1, 0, 0, 1, 0, 0, 1, 1], dtype=np.int64)
+from ..io.bam import (BamBatch, BamReader, FLAG_DUPLICATE, FLAG_PROPER_PAIR,
+                      FLAG_SECONDARY, FLAG_SUPPLEMENTARY, FLAG_UNMAPPED)
+from ..ops.device_reduce import DeviceCoverage, upload_records
 
 
 def _alignment_filter(batch: BamBatch, min_mapq: int, skip_mismapped: bool = False) -> np.ndarray:
@@ -80,12 +81,12 @@ class _Accumulator:
 
 class _ChrCoverage(_Accumulator):
     """Coverage over one chromosome's ROI bounding box ``lo..hi`` (1-based
-    inclusive): spans are clipped to the box before C1."""
+    inclusive): spans are clipped to the box."""
 
     def __init__(self, lo: int, hi: int):
         self.lo = lo
         self.hi = hi
-        self.dev = DeviceCoverage(hi - lo + 1)
+        self.dev = DeviceCoverage(hi - lo + 1, blocks=np.array([[lo - 1], [hi]]))
 
     def add_spans(self, starts: np.ndarray, ends: np.ndarray):
         """Add alignment spans (1-based inclusive), clipped to [lo, hi]."""
@@ -105,7 +106,8 @@ class _ChrCoverage(_Accumulator):
 class _ChrCoverageSparse(_Accumulator):
     """Coverage in flattened-ROI coordinates: memory scales with the ROI's
     bases, not with its bounding box (e.g. a genome-wide panel of small
-    regions). Spans are flattened on the host before C1."""
+    regions). ``add_spans`` and ``add_positions`` flatten on the host before
+    C1; ``DeviceCoverage.add_records`` flattens on the card."""
 
     def __init__(self, starts: np.ndarray, ends: np.ndarray):
         # merge the (sorted) ROI intervals into disjoint blocks
@@ -120,7 +122,7 @@ class _ChrCoverageSparse(_Accumulator):
         self.me = np.asarray(me, dtype=np.int64)
         self.off = np.concatenate(([0], np.cumsum(self.me - self.ms + 1)))
         self.total = int(self.off[-1])
-        self.dev = DeviceCoverage(self.total)
+        self.dev = DeviceCoverage(self.total, blocks=np.stack([self.ms - 1, self.me]))
 
     def add_spans(self, starts: np.ndarray, ends: np.ndarray):
         n = len(self.ms)
@@ -160,67 +162,6 @@ class _ChrCoverageSparse(_Accumulator):
         j = np.searchsorted(self.ms, starts, side="right") - 1
         fs = self.off[j] + starts - self.ms[j]
         return fs, fs + (np.asarray(ends, dtype=np.int64) - starts)
-
-
-def _expand_baseq_positions(batch: BamBatch, idx: np.ndarray, min_baseq: int):
-    """For selected records, return (m_positions, m_quals, dn_starts, dn_ends):
-    the 1-based reference position of every M-op base with its quality, plus
-    the D/N op spans (always covered)."""
-    if len(idx) == 0:
-        z = np.empty(0, np.int64)
-        return z, np.empty(0, np.uint8), z, z
-    lens = (batch.cigar >> 4).astype(np.int64)
-    ops = (batch.cigar & 0xF).astype(np.int64)
-    # per-op ref/query offsets within each read via global cumsum minus the
-    # read's base value (vectorized segment-cumsum)
-    ref_consume = lens * CIGAR_CONSUMES_REF[ops]
-    query_consume = lens * _QUERY_CONSUMES[ops]
-    co = batch.cigar_off
-    n_ops_per_read = co[1:] - co[:-1]
-    read_of_op = np.repeat(np.arange(len(batch)), n_ops_per_read)
-    ref_before = np.concatenate(([0], np.cumsum(ref_consume)[:-1]))
-    q_before = np.concatenate(([0], np.cumsum(query_consume)[:-1]))
-    first_op = np.minimum(co[:-1], max(len(ops) - 1, 0))
-    ref_off_in_read = ref_before - np.repeat(ref_before[first_op], n_ops_per_read)
-    q_off_in_read = q_before - np.repeat(q_before[first_op], n_ops_per_read)
-
-    sel_mask = np.zeros(len(batch), dtype=bool)
-    sel_mask[idx] = True
-    op_sel = sel_mask[read_of_op]
-
-    pos_of_read = batch.pos.astype(np.int64) + 1  # 1-based
-    seq_off_of_read = batch.seq_off[:-1]
-
-    # M/=/X ops with quality filter
-    is_m = ((ops == 0) | (ops == 7) | (ops == 8)) & op_sel
-    if is_m.any():
-        m_lens = lens[is_m]
-        m_read = read_of_op[is_m]
-        m_ref_start = pos_of_read[m_read] + ref_off_in_read[is_m]
-        m_q_start = seq_off_of_read[m_read] + q_off_in_read[is_m]
-        tot = int(m_lens.sum())
-        rep_ref = np.repeat(m_ref_start, m_lens)
-        rep_q = np.repeat(m_q_start, m_lens)
-        within = np.arange(tot, dtype=np.int64) - np.repeat(
-            np.concatenate(([0], np.cumsum(m_lens[:-1]))), m_lens)
-        m_positions = rep_ref + within
-        m_quals = batch.qual[rep_q + within]
-    else:
-        m_positions = np.empty(0, np.int64)
-        m_quals = np.empty(0, np.uint8)
-
-    # D/N ops: always covered
-    is_dn = ((ops == 2) | (ops == 3)) & op_sel
-    if is_dn.any():
-        dn_read = read_of_op[is_dn]
-        dn_starts = pos_of_read[dn_read] + ref_off_in_read[is_dn]
-        dn_ends = dn_starts + lens[is_dn] - 1
-    else:
-        dn_starts = np.empty(0, np.int64)
-        dn_ends = np.empty(0, np.int64)
-
-    keep = m_quals >= min_baseq
-    return m_positions[keep], m_quals[keep], dn_starts, dn_ends
 
 
 def _roi_by_chr(bed: BedFile):
@@ -283,27 +224,24 @@ def _compute_chr_coverage(bed: BedFile, bam_file: str, min_mapq: int, min_baseq:
     for i, rn in enumerate(ref_num):
         want[i] = rn in accs
 
+    device = next(iter(accs.values())).dev.device if accs else None
     for batch in reader:
         sel = _alignment_filter(batch, min_mapq, skip_mismapped)
         rid = batch.ref_id
         sel &= (rid >= 0) & want[np.clip(rid, 0, len(ref_num) - 1)]
         if not sel.any():
             continue
-        ends = batch.end_positions()  # 0-based exclusive
-        idx_all = np.flatnonzero(sel)
-        rids = rid[idx_all]
+        # a record's key: its chromosome where it is kept, else -1; each
+        # launch takes the range of records that holds its chromosome's
+        idx = np.flatnonzero(sel)
+        rids = rid[idx]
+        quals = (batch.seq_off, batch.qual) if min_baseq > 0 else ()
+        rec = upload_records(batch.pos, np.where(sel, rid, -1), batch.cigar_off,
+                             batch.cigar, *quals, device=device)
         for r in np.unique(rids):
-            idx = idx_all[rids == r]
-            acc = accs[int(ref_num[r])]
-            if min_baseq > 0:
-                m_pos, _mq, dn_s, dn_e = _expand_baseq_positions(batch, idx, min_baseq)
-                acc.add_positions(m_pos)
-                if len(dn_s):
-                    acc.add_spans(dn_s, dn_e)
-            else:
-                starts = batch.pos[idx].astype(np.int64) + 1       # 1-based
-                ends1 = ends[idx]                                   # 0-based excl == 1-based incl
-                acc.add_spans(starts, ends1)
+            at = idx[rids == r]
+            accs[int(ref_num[r])].dev.add_records(rec, int(at[0]), int(at[-1]) + 1, int(r),
+                                                  min_baseq)
     reader.close()
     return accs, by_chr
 

@@ -1,19 +1,20 @@
 #!/usr/bin/env python3
-"""C2 (the coverage prefix sum) and R2 (threshold runs) beside variants of themselves, timed on the card.
+"""C2 (the coverage prefix sum), R2 (threshold runs) and C1's record form beside variants of themselves, timed on the card.
 
-    python3 scripts/coverage_variants.py [--kernel finalize|runs] [--parent DIR]
+    python3 scripts/coverage_variants.py [--kernel finalize|runs|records] [--parent DIR]
 
 Builds variants of ``ngsbits_tpu_torch/csrc/coverage.cu`` under
 build/coverage_variants/ (one nvcc per variant, all at once), each a copy of
 the source with checked text substitutions, and times C2
 (``--kernel finalize``, the default: the dense mode alone and the histogram
-mode) or R2 (``--kernel runs``: both passes, without the fetch of the totals
-between them). Every variant's outputs are held equal to the plain version
-first. With ``--parent DIR`` (a checkout of another commit, e.g.
-``git archive HEAD~1 | tar -x -C build/parent``), that commit's coverage.cu
-is built and its kernel timed too, as ``parent``, with the scratch and
-arguments that source takes (a ``tile_sums`` buffer for C2 and a scan
-buffer for R2 before the single-pass designs).
+mode), R2 (``--kernel runs``: both passes, without the fetch of the totals
+between them) or C1's record form (``--kernel records``). Every variant's
+outputs are held equal to the plain version first. With ``--parent DIR`` (a
+checkout of another commit, e.g. ``git archive HEAD~1 | tar -x -C
+build/parent``), that commit's coverage.cu is built and its kernel timed
+too, as ``parent``, with the scratch and arguments that source takes (a
+``tile_sums`` buffer for C2 and a scan buffer for R2 before the single-pass
+designs; C1's record form has no parent).
 
 Shapes, as the coverage tools and MappingQC hand them to the kernels:
 
@@ -46,14 +47,29 @@ Shapes, as the coverage tools and MappingQC hand them to the kernels:
   R2: batch 4, batch 16          mask words of loads in flight a warp
   R2: 6 blocks/SM, 8 blocks/SM   register caps by __launch_bounds__
   torch.cumsum   C2's yardstick: one PyTorch call for the dense coverage
+  C1 records: one batch as the exome BAM's pass hands it (65,536 sorted
+                 records of 151 bp, 53,500 kept, most near 2,163 panel
+                 blocks of a chromosome's 8 Mb; qualities drawn a base from
+                 Q2/12/23/37 as utils/synth.py writes them), with
+                 -min_baseq 20 and without (a thread a record, unchanged
+                 by the variants)
+  records: steps 1, steps 8      32-base steps whose quality bytes a lane
+                 loads before testing them (as built: 5)
+  records: no block fast path    a binary search at every boundary (as
+                 built: an op in one block maps its boundaries by offset)
+  records: a thread a record     -min_baseq's records walked a thread each,
+                 the bases of an op one at a time (as built: a warp a record)
+  records ablations (outputs wrong, not checked): no atomics, no quality
+                 loads (every base with SEQ counts)
 
 Times: device time of 10 calls captured in a CUDA graph (L2-warm) and one
 call after a 128 MB overwrite and read (cold), as chip_smoke.py times
 kernels, each three times; the median and the three. Bound: C2 reads the
 difference array once and writes its outputs once; R2 reads 4 bytes a
 region position, the regions' starts and offsets, and writes the totals and
-12 bytes a run. Prints one line per variant and shape and, last, one JSON
-line with every result. Needs a CUDA device.
+12 bytes a run; C1's record form what ``selfcheck.coverage_add_records_case``
+counts. Prints one line per variant and shape and, last, one JSON line with
+every result. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -189,7 +205,80 @@ RUNS_VARIANTS = {
     "batch 4": [("constexpr int kRunBatch = 8;", "constexpr int kRunBatch = 4;")],
     "batch 16": [("constexpr int kRunBatch = 8;", "constexpr int kRunBatch = 16;")],
 }
-VARIANTS = {"finalize": FINALIZE_VARIANTS, "runs": RUNS_VARIANTS}
+_STEPS = "constexpr int kMatchSteps = 5;"
+_INSIDE = "const bool inside = j < g.n && __ldg(g.bs + j) <= a && a + len <= __ldg(g.be + j);"
+_EVENT = "if (d != 0) atomicAdd(diff + (inside ? at + i : g.index(a + i)), d);"
+_C2_HEADER = "// ---------------------------------------------------------------------------\n// C2\n"
+_LANE_KERNEL = """// -min_baseq with a thread a record: its ops in turn, the bases of an M, = or
+// X op one at a time (unrolled), a run's boundaries added when it closes
+__global__ void __launch_bounds__(kAddThreads)
+coverage_records_lane_kernel(const int* __restrict__ pos, const int* __restrict__ keep,
+                             const long long* __restrict__ cigar_off,
+                             const unsigned* __restrict__ cigar,
+                             const long long* __restrict__ qual_off,
+                             const unsigned char* __restrict__ qual, int r0, int r1, int ref,
+                             int min_baseq, Blocks g, int* __restrict__ diff) {
+    const long long stride = static_cast<long long>(gridDim.x) * kAddThreads;
+    for (long long r = r0 + static_cast<long long>(blockIdx.x) * kAddThreads + threadIdx.x;
+         r < r1; r += stride) {
+        if (__ldg(keep + r) != ref) continue;
+        const long long c_end = __ldg(cigar_off + r + 1);
+        const long long q0 = __ldg(qual_off + r);
+        const long long n = __ldg(qual_off + r + 1) - q0;
+        const unsigned char* q = qual + q0;
+        long long x = __ldg(pos + r), qi = 0;
+        for (long long c = __ldg(cigar_off + r); c < c_end; ++c) {
+            const unsigned w = __ldg(cigar + c);
+            const unsigned op = w & 0xF;
+            const long long len = w >> 4;
+            if (((kMatchOps >> op) & 1) && len > 0) {
+                const int j = g.find(x);
+                const bool inside = j < g.n && __ldg(g.bs + j) <= x && x + len <= __ldg(g.be + j);
+                if (inside || g.index(x, j) != g.index(x + len)) {
+                    const int at = inside ? static_cast<int>(__ldg(g.off + j) + x - __ldg(g.bs + j)) : 0;
+                    const int m = static_cast<int>(len);
+                    const long long left = n - qi;
+                    const int avail = left <= 0 ? 0 : (left < m ? static_cast<int>(left) : m);
+                    const unsigned char* qp = q + (qi < n ? qi : n);
+                    int start = -1;
+#pragma unroll 8
+                    for (int i = 0; i <= m; ++i) {
+                        const bool counts = i < m && (i < avail ? static_cast<int>(__ldg(qp + i)) : 0xFF) >= min_baseq;
+                        if (counts && start < 0) {
+                            start = i;
+                        } else if (!counts && start >= 0) {
+                            atomicAdd(diff + (inside ? at + start : g.index(x + start)), 1);
+                            atomicAdd(diff + (inside ? at + i : g.index(x + i)), -1);
+                            start = -1;
+                        }
+                    }
+                }
+            } else if (op == 2 || op == 3) {
+                add_run(g, x, x + len, diff);
+            }
+            if ((kRefOps >> op) & 1) x += len;
+            if ((kQueryOps >> op) & 1) qi += len;
+        }
+    }
+}
+
+"""
+_BASEQ_LAUNCH = "coverage_records_baseq_kernel<<<add_grid(32 * n), kAddThreads, 0, s>>>("
+RECORDS_VARIANTS = {
+    "as built": [],
+    "steps 1": [(_STEPS, _STEPS.replace("5", "1"))],
+    "steps 8": [(_STEPS, _STEPS.replace("5", "8"))],
+    "no block fast path": [(_INSIDE, "const bool inside = false;")],
+    "a thread a record": [(_C2_HEADER, _LANE_KERNEL + _C2_HEADER),
+                          (_BASEQ_LAUNCH,
+                           "coverage_records_lane_kernel<<<add_grid(n), kAddThreads, 0, s>>>(")],
+    "no atomics": [(_EVENT, "if (d == 0x7fff) diff[0] = inside ? at + i : g.index(a + i);")],
+    "no quality loads": [("(i < avail ? static_cast<int>(__ldg(qp + i)) : 0xFF)",
+                          "(i < avail ? 40 : 0xFF)")],
+}
+_ABLATIONS.add("no quality loads")
+_ABLATIONS.add("no atomics")
+VARIANTS = {"finalize": FINALIZE_VARIANTS, "runs": RUNS_VARIANTS, "records": RECORDS_VARIANTS}
 
 
 def _variant_source(subs: list[tuple[str, str]]) -> str:
@@ -215,6 +304,9 @@ def _bind(lib: ctypes.CDLL, parent: bool) -> ctypes.CDLL:
         fn.restype = ctypes.c_int if parent else ll
     for fn in (lib.ngs_coverage_finalize, lib.ngs_runs_count, lib.ngs_runs_write):
         fn.restype = ctypes.c_int
+    if not parent:
+        lib.ngs_coverage_add_records.argtypes = [p, p, p, p, p, p, i, i, i, i, p, i, i, p, p]
+        lib.ngs_coverage_add_records.restype = ctypes.c_int
     return lib
 
 
@@ -368,7 +460,71 @@ def _runs_calls(libs, dev):
         yield label + f": {n_runs} runs", 4 * total + 12 * n + 8 + 16 + 12 * n_runs, calls
 
 
-RUNNERS = {"finalize": _finalize_calls, "runs": _runs_calls}
+# the exome BAM's median batch (chip_smoke.py, a chromosome's 8 Mb): its
+# panel's merged blocks and the part of the chromosome the batch spans
+EXOME_BLOCKS, EXOME_CHROM, BATCH_SPAN, KEPT = 2_163, 8_000_000, 3_200_000, 53_500
+_QUALS = np.array([2] * 3 + [12] * 6 + [23] * 17 + [37] * 102, dtype=np.uint8)
+
+
+def _exome_batch(seed: int = 4):
+    """(columns of a sorted batch of 65,536 records of 151 bp, the panel's
+    blocks as int64 [3, n], span): 151M with a few clips, deletions and
+    insertions; 80% of the reads near a block; 53,500 kept."""
+    rng = np.random.default_rng(seed)
+    bs = np.sort(rng.choice(EXOME_CHROM // 3000, EXOME_BLOCKS, replace=False)) * 3000
+    be = bs + rng.integers(100, 400, size=EXOME_BLOCKS)
+    n = 65_536
+    near = rng.random(n) < 0.8
+    in_batch = np.flatnonzero(bs < BATCH_SPAN)
+    at = bs[rng.choice(in_batch, size=n)] + rng.integers(-250, 400, size=n)
+    pos = np.sort(np.where(near, at, rng.integers(0, BATCH_SPAN, size=n))).astype(np.int32)
+    shapes = [[(151, 0)], [(20, 4), (131, 0)], [(70, 0), (2, 2), (81, 0)],
+              [(60, 0), (1, 1), (90, 0)]]
+    pick = rng.choice(4, size=n, p=[0.9, 0.04, 0.03, 0.03])
+    ops = [shapes[k] for k in pick]
+    cigar = np.array([(ln << 4) | op for o in ops for ln, op in o], dtype=np.uint32)
+    cigar_off = np.concatenate(([0], np.cumsum([len(o) for o in ops]))).astype(np.int64)
+    seq_off = np.arange(n + 1, dtype=np.int64) * 151
+    qual = _QUALS[rng.integers(0, len(_QUALS), size=151 * n)]
+    keep = np.zeros(n, dtype=bool)
+    keep[rng.choice(n, KEPT, replace=False)] = True
+    rec = dr.upload_records(pos, np.where(keep, 0, -1), cigar_off, cigar, seq_off, qual,
+                            device="cuda")
+    off = np.concatenate(([0], np.cumsum(be - bs)[:-1]))
+    blocks = torch.tensor(np.stack([bs, be, off]), device="cuda")
+    return rec, blocks, int((be - bs).sum())
+
+
+def _records_calls(libs, dev):
+    """As ``_finalize_calls``, for C1's record form: the batch with
+    -min_baseq 20 and without; the coverages (prefix sums) are compared."""
+    if "parent" in libs:
+        raise ValueError("C1's record form has no parent to time")
+    rec, blocks, span = _exome_batch()
+    n = rec.pos.shape[0]
+    for min_baseq in (20, 0):
+        case = selfcheck.coverage_add_records_case(rec, 0, n, 0, min_baseq, blocks, span)
+        case.plain()
+        want = case.outputs()[1][0]
+        calls = {}
+        for name, lib in libs.items():
+            diff = torch.zeros(span + 1, dtype=torch.int32, device=dev)
+
+            def call(lib=lib, diff=diff, name=name):
+                _launched(name, lib.ngs_coverage_add_records(
+                    _p(rec.pos), _p(rec.keep), _p(rec.cigar_off), _p(rec.cigar),
+                    _p(rec.qual_off), _p(rec.qual), 0, n, 0, min_baseq, _p(blocks),
+                    blocks.shape[1], span, _p(diff), _stream()))
+
+            def check(diff=diff, name=name):
+                return name in _ABLATIONS or torch.equal(
+                    torch.cumsum(diff[:span].to(torch.int64), 0), want)
+            calls[name] = (call, check)
+        yield (f"records, -min_baseq {min_baseq}: {n} records, {KEPT} kept, "
+               f"{EXOME_BLOCKS} blocks", case.bytes, calls)
+
+
+RUNNERS = {"finalize": _finalize_calls, "runs": _runs_calls, "records": _records_calls}
 
 
 def main(argv: list[str] | None = None) -> int:

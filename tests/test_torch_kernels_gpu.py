@@ -31,8 +31,12 @@ sum passes 2^31); C2's single pass at 64M positions and at chr1's length
 (its look-backs cross waves of blocks), launched twice on one scratch and
 replayed from a CUDA graph; R2 with regions of 1-3 positions at unaligned
 starts, runs across mask words and warps' tiles, and chr1's box as one
-region. Integer outputs: the tolerance is exact equality. Skips where no
-CUDA device is available."""
+region; C1's record form (a BAM batch's records walked on the card) at a
+few thousand records: sorted and unsorted, several chromosomes, a pile, a
+box's edges, a sparse panel with N ops over many blocks, -min_baseq 0, 20
+and 30, several batches into one difference array against the CPU.
+Integer outputs: the tolerance is exact equality. Skips where no CUDA
+device is available."""
 
 import functools
 
@@ -928,3 +932,132 @@ def test_region_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(TypeError):
         dr.threshold_runs(torch.zeros(8, dtype=torch.int32, device="cuda"), starts,
                           offsets.to(torch.int32), 1, False)
+
+
+# ------------------------------------------------------------ C1's record form
+
+def _regions_as_blocks(start, width, seed):
+    """Merged blocks of regions of 20-300 bp every 0.5-3 kb: genomic starts,
+    exclusive ends and offsets (int64 [3, n] on the card), and their span."""
+    rng = np.random.default_rng(seed)
+    s = start + np.cumsum(rng.integers(500, 3000, size=width // 1500))
+    e = s + rng.integers(20, 300, size=len(s))
+    off = np.concatenate(([0], np.cumsum(e - s)[:-1]))
+    return torch.tensor(np.stack([s, e, off]), device="cuda"), int((e - s).sum())
+
+
+# name: (alignment_records' arguments, chromosome, the accumulator: a box
+# (start, end) or ("sparse", start, width))
+RECORD_CASES = {
+    "sorted, deep box": (dict(n=4000, seed=31, start=0, width=12_000), 0, (0, 12_000)),
+    "a pile on a few positions": (dict(n=3000, seed=32, start=5000, width=40), 0,
+                                  (4900, 5300)),
+    "box edges, reads past both": (dict(n=3000, seed=33, start=0, width=30_000), 0,
+                                   (9000, 21_000)),
+    "unsorted, three chromosomes": (dict(n=5000, seed=34, start=0, width=30_000, n_refs=3,
+                                         ordered=False), 2, (0, 30_000)),
+    "sparse, long N ops": (dict(n=5000, seed=35, start=0, width=400_000, long_n=40_000), 0,
+                           ("sparse", 0, 400_000)),
+    "unsorted, sparse": (dict(n=5000, seed=36, start=0, width=400_000, n_refs=2,
+                              ordered=False, long_n=5_000), 1, ("sparse", 0, 400_000)),
+}
+
+
+def _record_inputs(name, min_baseq):
+    """The case's records on the card (kept: the tools' filter), its range
+    of records for the chromosome, the blocks and the span."""
+    from ngsbits_tpu_torch.ops import device_reduce as dr
+    args, ref, geo = RECORD_CASES[name]
+    cols = selfcheck.alignment_records(**args)
+    keep = ((cols["flag"] & 0x704) == 0) & (cols["mapq"] >= 1)
+    quals = (cols["seq_off"], cols["qual"]) if min_baseq > 0 else ()
+    rec = dr.upload_records(cols["pos"], selfcheck.records_keys(cols, keep), cols["cigar_off"],
+                            cols["cigar"], *quals, device="cuda")
+    if geo[0] == "sparse":
+        blocks, span = _regions_as_blocks(geo[1], geo[2], args["seed"])
+    else:
+        blocks = torch.tensor([[geo[0]], [geo[1]], [0]], device="cuda")
+        span = geo[1] - geo[0]
+    at = np.flatnonzero(keep & (cols["ref_id"] == ref))
+    return rec, int(at[0]), int(at[-1]) + 1, ref, blocks, span
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("min_baseq", [0, 20, 30])
+@pytest.mark.parametrize("name", sorted(RECORD_CASES))
+def test_coverage_add_records_matches_plain_version(name, min_baseq):
+    """C1's record form at a few thousand records: a coordinate-sorted deep
+    box, a pile on a few positions (one counter hit by many warps), reads
+    past a box's edges, unsorted records of three chromosomes, a sparse
+    panel with N ops over many blocks; every CIGAR op, qualities of 0xFF,
+    records without SEQ, filtered records inside the range. The coverages
+    are compared (a run of bases is one span on the card, unit positions in
+    the plain version); one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rec, r0, r1, ref, blocks, span = _record_inputs(name, min_baseq)
+    case = selfcheck.coverage_add_records_case(rec, r0, r1, ref, min_baseq, blocks, span)
+    before = case.wrapper.launches
+    case.kernel()
+    case.plain()
+    torch.cuda.synchronize()
+    assert case.wrapper.launches == before + 1
+    assert selfcheck.max_abs_err(case) == 0
+    assert case.outputs()[0][0].max() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("min_baseq", [0, 20])
+def test_coverage_add_records_into_one_array_on_card_matches_cpu(min_baseq):
+    """Three batches of two chromosomes into one difference array each, on
+    the card and on the CPU (``DeviceCoverage.add_records``, then C2's dense
+    mode), a box and a sparse panel; launches counted once a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ngsbits_tpu_torch.ops import device_reduce as dr
+    rng = np.random.default_rng(37)
+    s = np.cumsum(rng.integers(500, 3000, size=150))
+    e = s + rng.integers(20, 300, size=150)
+    geometries = {"box": np.array([[0], [200_000]]), "sparse": np.stack([s, e])}
+    for geo in geometries.values():
+        span = int((geo[1] - geo[0]).sum())
+        got = {dev: dr.DeviceCoverage(span, dev, blocks=geo) for dev in ("cuda", "cpu")}
+        before = dr.coverage_add_records_into.launches
+        for seed in (38, 39, 40):
+            cols = selfcheck.alignment_records(3000, seed=seed, start=0, width=200_000,
+                                               n_refs=2, long_n=3000)
+            keys = selfcheck.records_keys(cols, (cols["flag"] & 0x704) == 0)
+            quals = (cols["seq_off"], cols["qual"]) if min_baseq > 0 else ()
+            for dev, dc in got.items():
+                rec = dr.upload_records(cols["pos"], keys, cols["cigar_off"], cols["cigar"],
+                                        *quals, device=dev)
+                for ref in (0, 1):
+                    at = np.flatnonzero(keys == ref)
+                    dc.add_records(rec, int(at[0]), int(at[-1]) + 1, ref, min_baseq)
+        assert dr.coverage_add_records_into.launches == before + 6
+        np.testing.assert_array_equal(got["cuda"].finalize(), got["cpu"].finalize())
+
+
+@pytest.mark.gpu
+def test_coverage_add_records_refuses_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ngsbits_tpu_torch.ops import device_reduce as dr
+    cols = selfcheck.alignment_records(100, seed=41)
+    rec = dr.upload_records(cols["pos"], np.zeros(100, np.int32), cols["cigar_off"],
+                            cols["cigar"], cols["seq_off"], cols["qual"], device="cuda")
+    blocks = torch.tensor([[0], [20_000], [0]], device="cuda")
+    diff = torch.zeros(20_001, dtype=torch.int32, device="cuda")
+    before = dr.coverage_add_records_into.launches
+    with pytest.raises(TypeError):
+        dr.coverage_add_records_into(rec._replace(pos=rec.pos.to(torch.int64)), 0, 100, 0, 20,
+                                     blocks, diff)
+    with pytest.raises(TypeError):
+        dr.coverage_add_records_into(rec, 0, 100, 0, 20, blocks.to(torch.int32), diff)
+    with pytest.raises(ValueError, match="qualities"):
+        dr.coverage_add_records_into(rec._replace(qual=None), 0, 100, 0, 20, blocks, diff)
+    with pytest.raises(ValueError, match="devices"):
+        dr.coverage_add_records_into(rec, 0, 100, 0, 20, blocks.cpu(), diff)
+    dr.coverage_add_records_into(rec, 50, 50, 0, 20, blocks, diff)  # no records: no launch
+    assert dr.coverage_add_records_into.launches == before
+    assert int(diff.abs().sum()) == 0
