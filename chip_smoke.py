@@ -29,15 +29,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
             adapters at the main batch, with and without -ec, at B=1237,
             L=250 and at B=1237, L=999 (rows too wide to stage, read where
             they lie; per-pair results, accumulators and corrected reads
-            equal). MappingQC's C1, C2 and B1 at their edges (span 1, a span
-            not a multiple of C2's tile, spans of length 0 and at both ends,
-            coverage at and above hist_max, cfDNA's and the adaptive
-            histogram parameters, hot bins, all bundled SNPs); at the main
-            path's inputs they are checked and timed in the mappingqc phase.
+            equal). MappingQC's C1 (its span form and its read form), C2
+            and B1 at their edges (span 1, a span not a multiple of C2's
+            tile, spans of length 0 and at both ends; reads at region edges,
+            over many regions, in none, of no reference length, over the
+            ROI's last region, on several chromosomes; coverage at and above
+            hist_max, cfDNA's and the adaptive histogram parameters, hot
+            bins, all bundled SNPs); at the main path's inputs they are
+            checked and timed in the mappingqc phase.
             The coverage tools' C2 (dense mode alone), R1 and R2 at their
             edges (one-base regions, regions at both ends and over the whole
             span, overlapping and repeated (R1) or disjoint (R2), cutoffs of
-            0, 1, 3, 10^30 and -1), and C1's record form on seeded records
+            0, 1, 3, 10^30 and -1; R1 also at the region sets its tiling
+            treats differently, ``selfcheck.r1_regions``), and C1's record
+            form on seeded records
             (every CIGAR op, 0xFF qualities, no SEQ; sorted into a box,
             unsorted over a sparse panel with N ops across many blocks; with
             and without -min_baseq).
@@ -77,17 +82,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
             or near target, duplicates, MAPQ 0, unmapped mates, clips and
             indels, heterozygous and homozygous SNPs. MappingQC -roi -read_qc
             with the contamination check on the card, counts reset before
-            and read after (C1, C2, B1, unpack, K1 and tails all launched),
-            the inputs it hands C1, C2 and B1 copied where it calls the
-            coverage and bincount engines (host copies of each batch's
-            spans and indices, C2's difference array on the card: in the
-            run's time; one copy a launch); prints
-            reads/s and the seconds of each pass; C1, C2 and B1 against
-            their plain versions at each of the run's launches, timed at
-            the launch of median size (C1, B1) and at C2's (``library_ms``
-            for C1 ``index_add_`` and for B1 ``torch.bincount``, C2's
-            yardstick cumsum + bincount and X6's sort route over the run's
-            spans); runs the JAX
+            and read after (C1's read form, C2, B1, unpack, K1 and tails all
+            launched, C1's span form not), the inputs it hands C1, C2 and B1
+            copied where it calls the coverage and bincount engines (host
+            copies of each batch's reads and indices, C2's difference array
+            on the card: in the run's time; one copy a launch); prints
+            reads/s and the seconds of each pass; C1's read form, C2 and B1
+            against their plain versions at each of the run's launches,
+            timed at the launch of median size (C1, B1) and at C2's, C1's
+            span form at the spans the host made of that launch's reads
+            before the read form (the library calls timed as the kernels
+            are: ``index_add_`` for C1 on those spans, ``torch.bincount``
+            for B1; C2's yardstick cumsum + bincount and X6's sort route
+            over the run's spans); runs the JAX
             package's host route on the same files in a subprocess
             (scripts/jax_host_route.py, with -debug for its stage times) and
             requires identical reports; then the first 200,000 records on
@@ -179,6 +186,10 @@ KERNELS = {  # name: (source, the TPU/XLA function it replaces)
     # prefix sum and histogram of mapping_stats.py:636-641 and :477), and
     # DeviceBincount (X6 with an empty ends side)
     "coverage_add": ("ngsbits_tpu_torch/csrc/coverage.cu", "ngsbits_tpu/ops/device_reduce.py:77"),
+    # the same X6, with MappingQC's flattening of its reads onto the ROI
+    # before it (ngsbits_tpu/qc/mapping_stats.py:284-305)
+    "coverage_add_reads": ("ngsbits_tpu_torch/csrc/coverage.cu",
+                           "ngsbits_tpu/ops/device_reduce.py:77"),
     # the same X6, with the host's span making and -min_baseq expansion
     # before it (ngsbits_tpu/qc/coverage.py:243-300, :376-390)
     "coverage_add_records": ("ngsbits_tpu_torch/csrc/coverage.cu",
@@ -294,11 +305,14 @@ def _check_equal(case, label: str) -> int:
 
 
 def _record(records: dict, case, label: str, main_shape: bool,
-            cold: bool = False, library=None) -> dict:
+            cold: bool = False, library=None, library_graph: bool = True) -> dict:
     """Checks the case, times it and returns its numbers; at the kernel's
     main shape they become its record's. ``library`` is one PyTorch call
-    that computes the same function on the same inputs, timed as
-    ``library_ms``."""
+    that computes the same function on the same inputs, timed as the kernel
+    is: ``library_ms`` per call from Python, ``library_device_ms`` in a CUDA
+    graph (None, not measured, without ``library_graph``: a call that
+    synchronises cannot be captured) and, with ``cold``,
+    ``library_cold_ms``."""
     from ngsbits_tpu_torch.ops import selfcheck
     err = _check_equal(case, label)
     bytes_ms = case.bytes / PEAK_BYTES * 1e3
@@ -313,12 +327,20 @@ def _record(records: dict, case, label: str, main_shape: bool,
     if cold:
         got["cold_ms"] = selfcheck.cold_ms(launches)
     got["library_ms"] = None if library is None else selfcheck.call_ms(library)
+    lib_text = ""
+    if library is not None:
+        got["library_device_ms"] = selfcheck.device_ms(library) if library_graph else None
+        lib_text = (", library: device " + (f"{got['library_device_ms']:.4f}" if library_graph
+                                            else "not measured (it synchronises)"))
+        if cold:
+            got["library_cold_ms"] = selfcheck.cold_ms(library)
+            lib_text += f", cold {got['library_cold_ms']:.4f}"
+        lib_text += f", per call {got['library_ms']:.4f} ms"
     print(f"{case.name:16s} {label}: equal; device {got['ms']:.4f} ms"
           + (f", cold {got['cold_ms']:.4f} ms ({got['bound_ms'] / got['cold_ms']:.1%} "
              f"of the bound)" if cold else "")
           + f", per wrapper call {got['call_ms']:.4f} ms, plain "
-          f"{got['plain_ms']:.4f} ms"
-          + ("" if library is None else f", library {got['library_ms']:.4f} ms")
+          f"{got['plain_ms']:.4f} ms" + lib_text
           + f"; bound {got['bound_ms']:.4f} ms "
           f"({case.bytes} B, {case.ops} int ops)", flush=True)
     source, replaces = KERNELS[case.name]
@@ -414,6 +436,18 @@ def coverage_edges(dev: torch.device):
     for label, (es, ee, sp) in edge_spans.items():
         _check_equal(selfcheck.coverage_add_case(t(es), t(ee), sp), label)
         print(f"coverage_add     {label}: equal", flush=True)
+    from ngsbits_tpu_torch.ops import device_reduce as dr
+    for label, n, kw in (("1 read", 1, {}), ("31 reads", 31, {}),
+                         ("3000 reads, 3 chromosomes", 3000, {}),
+                         ("45000 reads, 24 chromosomes of 2500 regions", 45_000,
+                          dict(n_chroms=24, n_regions=2500, width=8_000_000))):
+        (_, rs, re), (_, qs, qe, i0, i1) = selfcheck.roi_reads(n, seed=n, **kw)
+        sp = int((re - rs + 1).sum())
+        regions = dr.DeviceCoverage(sp, dev, regions=np.stack([rs, re])).regions
+        reads = t(np.stack([qs, qe, i0, i1]).astype(np.int32))
+        _check_equal(selfcheck.coverage_add_reads_case(reads, regions, sp), label)
+        print(f"coverage_add_reads {label} (edges, no region, several regions, no reference "
+              f"length, the last region): equal", flush=True)
     cases = [("span=1, dense", edge_spans["span=1"], (1, 0, 1, 1), True),
              (f"span={odd}, dense", edge_spans[f"span={odd}"], (5, 599, 120, 1), True)]
     for avg, cfdna, pile in ((40, False, 599), (40, False, 600), (250, False, 1000),
@@ -436,7 +470,6 @@ def coverage_edges(dev: torch.device):
               flush=True)
     phase("kernels: the coverage tools' C1 record form, C2 (dense mode), R1 and R2 at "
           "their edges (at the main path's inputs after the coverage phase)")
-    from ngsbits_tpu_torch.ops import device_reduce as dr
     rng = np.random.default_rng(27)
     s = np.cumsum(rng.integers(500, 3000, size=300))
     e = s + rng.integers(20, 300, size=300)
@@ -472,28 +505,38 @@ def coverage_edges(dev: torch.device):
             _check_equal(selfcheck.threshold_runs_case(cov, *regions, cutoff, high), label)
         print(f"threshold_runs   {label}, {len(regions[0])} regions, cutoffs 0, 1, 3, "
               f"3 (high), 10^30, -1 (high): equal", flush=True)
+    for kind in selfcheck.R1_KINDS:  # where R1's tiling differs
+        sp, rs, re = selfcheck.r1_regions(kind, seed=30)
+        es, ee = selfcheck.coverage_spans(sp, max(sp // 50, 4), seed=31, pile=700)
+        cov = torch.cumsum(selfcheck.coverage_diff(es, ee, sp, dev)[:-1], 0).to(torch.int32)
+        _check_equal(selfcheck.region_sums_case(cov, rs, re), kind)
+        print(f"region_sums      {kind}: {len(rs)} regions, {int((re - rs + 1).sum())} "
+              f"positions over a span of {sp}: equal", flush=True)
+        del cov
 
 
 @contextlib.contextmanager
 def _capture_coverage_inputs():
-    """Copies, in launch order, of what MappingQC hands C1, C2 and B1 while
-    the block runs, taken where the engines (``DeviceCoverage.add`` and
-    ``histogram``, ``DeviceBincount.add``) are called; each call goes on to
-    the engine, whose wrappers launch and count. Yields
-    ``{"coverage_add": [(starts, ends, span)], "coverage_finalize": [(diff,
-    step, hist_max, bins, half_depth)], "bincount_add": [(idx, size)]}``:
-    host int32 arrays, and C2's difference array as a copy on the card."""
+    """Copies, in launch order, of what MappingQC hands C1's read form, C2
+    and B1 while the block runs, taken where the engines
+    (``DeviceCoverage.add_reads`` and ``histogram``, ``DeviceBincount.add``)
+    are called; each call goes on to the engine, whose wrappers launch and
+    count. Yields ``{"coverage_add_reads": [(reads, regions, span)],
+    "coverage_finalize": [(diff, step, hist_max, bins, half_depth)],
+    "bincount_add": [(idx, size)]}``: host int32 arrays (``reads`` ``[4,
+    k]`` as they go up), the ROI's regions as the engine holds them on the
+    card, and C2's difference array as a copy on the card."""
     import numpy as np
     from ngsbits_tpu_torch.ops.device_reduce import DeviceBincount, DeviceCoverage
-    got: dict = {"coverage_add": [], "coverage_finalize": [], "bincount_add": []}
-    cov_add, cov_histogram, count_add = (DeviceCoverage.add, DeviceCoverage.histogram,
+    got: dict = {"coverage_add_reads": [], "coverage_finalize": [], "bincount_add": []}
+    cov_add, cov_histogram, count_add = (DeviceCoverage.add_reads, DeviceCoverage.histogram,
                                          DeviceBincount.add)
 
-    def coverage_add(self, starts, ends_excl):
+    def coverage_add_reads(self, starts, ends, i0, i1):
         if len(starts):
-            got["coverage_add"].append((np.array(starts, np.int32),
-                                        np.array(ends_excl, np.int32), self.span))
-        cov_add(self, starts, ends_excl)
+            got["coverage_add_reads"].append((np.stack([starts, ends, i0, i1]).astype(np.int32),
+                                              self.regions, self.span))
+        cov_add(self, starts, ends, i0, i1)
 
     def histogram(self, step, hist_max, bins, half_depth):
         got["coverage_finalize"].append((self.diff.clone(), step, hist_max, bins, half_depth))
@@ -504,12 +547,12 @@ def _capture_coverage_inputs():
             got["bincount_add"].append((np.array(idx, np.int32), self.size))
         count_add(self, idx)
 
-    DeviceCoverage.add, DeviceCoverage.histogram, DeviceBincount.add = (
-        coverage_add, histogram, bincount_add)
+    DeviceCoverage.add_reads, DeviceCoverage.histogram, DeviceBincount.add = (
+        coverage_add_reads, histogram, bincount_add)
     try:
         yield got
     finally:
-        DeviceCoverage.add, DeviceCoverage.histogram, DeviceBincount.add = (
+        DeviceCoverage.add_reads, DeviceCoverage.histogram, DeviceBincount.add = (
             cov_add, cov_histogram, count_add)
 
 
@@ -520,36 +563,58 @@ def _median_launch(launches: list, size) -> tuple[int, tuple]:
     return i, launches[i]
 
 
+def _flattened(reads: torch.Tensor, regions: torch.Tensor) -> tuple:
+    """The int32 spans MappingQC's host made of these reads before C1's read
+    form (a span a pair of a read and a region of its range, clipped; the
+    JAX package's flattening)."""
+    import numpy as np
+    qs, qe, i0, i1 = reads.cpu().numpy().astype(np.int64)
+    rs, re, off = regions.cpu().numpy().astype(np.int64)
+    cnt = i1 - i0
+    rep = np.repeat(np.arange(len(qs)), cnt)
+    r = np.repeat(i0, cnt) + (np.arange(int(cnt.sum()))
+                              - np.repeat(np.concatenate(([0], np.cumsum(cnt)[:-1])), cnt))
+    lo, hi = np.maximum(rs[r], qs[rep]), np.minimum(re[r], qe[rep])
+    s = off[r] + lo - rs[r]
+    return s.astype(np.int32), (s + hi - lo + 1).astype(np.int32)
+
+
 def mappingqc_kernels(records: dict, got: dict, dev: torch.device):
-    """C1, C2 and B1 against their plain versions at every launch of the
-    mappingqc phase's run, on the inputs that run handed them
+    """C1's read form, C2 and B1 against their plain versions at every
+    launch of the mappingqc phase's run, on the inputs that run handed them
     (``_capture_coverage_inputs``); timed at the launch of median size (C1,
-    B1) and at C2's launch, with the library calls and C2's yardsticks."""
+    B1) and at C2's launch, with the library calls and C2's yardsticks. C1's
+    span form is timed at the spans the host made of the median launch's
+    reads before the read form (the same work, and ``index_add_``'s)."""
     from ngsbits_tpu_torch.ops import selfcheck
     t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    adds = [(t(s), t(e), span) for s, e, span in got["coverage_add"]]
+    adds = [(t(r), regions, span) for r, regions, span in got["coverage_add_reads"]]
     idxs = [(t(i), size) for i, size in got["bincount_add"]]
     fins = got["coverage_finalize"]
-    n_spans = [s.shape[0] for s, _, _ in adds]
+    n_reads = [r.shape[1] for r, _, _ in adds]
     n_idx = [i.shape[0] for i, _ in idxs]
-    phase(f"kernels: MappingQC's C1, C2 and B1 at the mappingqc run's inputs: C1 "
-          f"{len(adds)} launches of {min(n_spans)}-{max(n_spans)} spans ({sum(n_spans)} "
+    phase(f"kernels: MappingQC's C1 read form, C2 and B1 at the mappingqc run's inputs: C1 "
+          f"{len(adds)} launches of {min(n_reads)}-{max(n_reads)} reads ({sum(n_reads)} "
           f"in all), C2 {len(fins)}, B1 {len(idxs)} of {min(n_idx)}-{max(n_idx)} indices "
           f"({sum(n_idx)} in all)")
-    for k, (s, e, span) in enumerate(adds):
-        _check_equal(selfcheck.coverage_add_case(s, e, span), f"launch {k}")
+    for k, (r, regions, span) in enumerate(adds):
+        _check_equal(selfcheck.coverage_add_reads_case(r, regions, span), f"launch {k}")
     for k, (i, size) in enumerate(idxs):
         _check_equal(selfcheck.bincount_case(i, size), f"launch {k}")
-    print(f"coverage_add and bincount_add: equal at each of the run's launches", flush=True)
+    print(f"coverage_add_reads and bincount_add: equal at each of the run's launches", flush=True)
 
-    k, (s, e, span) = _median_launch(adds, lambda a: a[0].shape[0])
-    n = s.shape[0]
+    k, (r, regions, span) = _median_launch(adds, lambda a: a[0].shape[1])
+    s, e = (t(a) for a in _flattened(r, regions))
     idx_both = torch.cat([s, e]).to(torch.int64)
     signs = torch.cat([torch.ones_like(s), -torch.ones_like(e)])
-    lib_diff = torch.zeros(span + 1, dtype=torch.int32, device=s.device)
-    _record(records, selfcheck.coverage_add_case(s, e, span),
-            f"launch {k} of {len(adds)} (median): {n} spans into a span of {span}", True,
-            cold=True, library=lambda: lib_diff.index_add_(0, idx_both, signs))
+    lib_diff = torch.zeros(span + 1, dtype=torch.int32, device=dev)
+    index_add = lambda: lib_diff.index_add_(0, idx_both, signs)  # noqa: E731
+    label = (f"launch {k} of {len(adds)} (median): {r.shape[1]} reads, {s.shape[0]} (read, "
+             f"region) pairs, into a span of {span} ({regions.shape[1]} regions)")
+    _record(records, selfcheck.coverage_add_reads_case(r, regions, span), label, True,
+            cold=True, library=index_add)
+    _record(records, selfcheck.coverage_add_case(s, e, span), f"{label}, as the host's spans",
+            True, cold=True, library=index_add)
 
     for k, (diff, step, hist_max, bins, half) in enumerate(fins):
         span = diff.shape[0] - 1
@@ -569,8 +634,9 @@ def mappingqc_kernels(records: dict, got: dict, dev: torch.device):
         (torch.searchsorted(sorted_s, positions, right=True)
          - torch.searchsorted(sorted_e, positions, right=True))
 
-    all_s = torch.cat([a[0] for a in adds])
-    all_e = torch.cat([a[1] for a in adds])
+    spans = [_flattened(r, regions) for r, regions, _ in adds]
+    all_s = torch.cat([t(a) for a, _ in spans])
+    all_e = torch.cat([t(b) for _, b in spans])
     positions = torch.arange(span, dtype=torch.int32, device=diff.device)
     got_c2.update(yardstick_ms=selfcheck.call_ms(yardstick),
                   sort_route_ms=selfcheck.call_ms(sort_route))
@@ -584,7 +650,7 @@ def mappingqc_kernels(records: dict, got: dict, dev: torch.device):
     _record(records, selfcheck.bincount_case(i, size),
             f"launch {k} of {len(idxs)} (median): {i.shape[0]} indices into {size} "
             f"counters", True, cold=True,
-            library=lambda: torch.bincount(i, minlength=size))
+            library=lambda: torch.bincount(i, minlength=size), library_graph=False)
 
 
 def _drop_creation(path: Path) -> list[str]:
@@ -802,11 +868,13 @@ def mappingqc(records: dict):
         _reset()
         tool, seconds = _port(_mq_args(card, bam, bed, fa))
         launches = _launches()
-    path = ("coverage_add", "coverage_finalize", "bincount_add",
+    path = ("coverage_add_reads", "coverage_finalize", "bincount_add",
             "readqc_unpack", "readqc_batch", "readqc_tails")
     for name in path:
         if launches[name] == 0:
             raise AssertionError(f"{name} was not launched by MappingQC: {launches}")
+    if launches["coverage_add"]:
+        raise AssertionError(f"MappingQC uploaded spans to C1's span form: {launches}")
     for name in path[:3]:
         if len(got[name]) != launches[name]:
             raise AssertionError(f"{name}: {len(got[name])} inputs copied, "
@@ -823,7 +891,7 @@ def mappingqc(records: dict):
     split = ", ".join(f"{k} {v:.4f}" for k, v in tool.seconds.items())
     print(f"MappingQC on {torch.cuda.get_device_name(0)}: {seconds:.3f} s, "
           f"{reads / seconds:.0f} reads/s (both mates); seconds by stage: {split} "
-          f"(scan: the main QC's pass over the BAM with C1; finalize: C2 and its "
+          f"(scan: the main QC's pass over the BAM with C1's read form; finalize: C2 and its "
           f"fetch; the contamination check's pileup runs B1); launches {launches}",
           flush=True)
 

@@ -8,6 +8,13 @@
 //                      sort-and-search of the XLA `_cov_eval_fn` in
 //                      ngsbits_tpu/ops/device_reduce.py, behind
 //                      DeviceCoverage)
+//   coverage_add_reads C1's read form: MappingQC's usable on-target reads
+//                      (start, end, and the ROI's range of regions each
+//                      overlaps), each clipped on the card to every region in
+//                      its range and added at the flattened ROI's positions
+//                      (replaces the same sort-and-search together with the
+//                      host's flattening before it, the `np.repeat` chain of
+//                      `MappingScan.process` in ngsbits_tpu/qc/mapping_stats.py)
 //   coverage_add_records  C1's record form: a batch's alignment records
 //                      (positions, CIGARs, with -min_baseq qualities) walked
 //                      on the card into the same difference array, mapped
@@ -41,6 +48,18 @@
 // warp hit one counter (a read start shared by duplicates, a SNP under every
 // read of a pile): a warp first groups equal indices (__match_any_sync) and
 // one lane adds the group's size, so a hot counter takes one atomic a warp.
+//
+// C1's read form takes 16 bytes a read where the span form took 8 bytes a
+// (read, region) pair made on the host. Most reads overlap one region, but
+// a long spliced alignment may overlap many: a warp takes 32 reads, scans
+// their counts of regions and deals the (read, region) pairs out to its
+// lanes 32 at a time (a lane finds its pair's read by a search of five
+// shuffles in the scan), so a read over many regions is spread over the warp
+// instead of holding one lane while the others wait. A lane loads its
+// region's bounds and offset (neighbouring reads hit neighbouring regions:
+// L1 and L2), clips the read to them and adds with the same warp-grouped
+// atomics. Its bound by bytes is a fraction of a microsecond at MappingQC's
+// batches; like the span form it takes about a launch's latency.
 //
 // C1's record form takes what the host used to expand. Without -min_baseq
 // a thread walks a record's CIGAR and adds its reference span. With it a
@@ -98,10 +117,23 @@
 // int32 starts and the int64 exclusive prefix of their lengths (`offsets`):
 // the concatenated regions are cut into equal tiles of positions, and a
 // tile's first region is found by a search in `offsets`, so one long region
-// is spread over many warps and many short ones share a warp. R1 takes 8192
-// positions a warp, sums each region's piece of its tile with 16-byte loads,
-// reduces in the warp and adds the int64 piece into the region's total with
-// one atomic (exact in any order).
+// is spread over many warps and many short ones share a warp.
+//
+// R1 sizes its tiles from the work: as many tiles as the grid has warps,
+// rounded up to 32 positions and at most 8192, so an exome chromosome's
+// panel (a few thousand regions of 100-400 bp, under a million positions)
+// keeps every warp of the grid busy where tiles of 8192 busied about a
+// hundred. A warp finds its first region by a search of 32 probes a step
+// and holds the next 32 regions' bounds and starts in its lanes, so a piece
+// (the part of one region in the tile) needs no load of its bounds. Pieces
+// of at least 32 positions are summed by the whole warp with 16-byte loads
+// (coalesced), reduced in the warp and added into the region's int64 total
+// with one atomic; the run of shorter pieces before such a piece is summed a
+// lane a piece, each lane adding its own region's total with one atomic, so
+// a warp spends no reduction on a region of a few positions. One region over
+// a whole chromosome stays bound by its loads (8192 positions a warp): with
+// the grid's four blocks an SM declared to the compiler it keeps more of them
+// in flight (64 registers a thread, where it chose 36 without).
 //
 // R2 reads the coverage once. A warp takes 1024 region positions, a 32-bit
 // mask word a lane. It finds its first region by a search of 32 probes a
@@ -140,7 +172,9 @@ constexpr int kWarpSpan = 32 * kPerThread;          // positions a warp stages
 constexpr int kStageBytes = 4 * kTile;              // C2's staging buffer
 constexpr int kMaxBins = 4096;                      // histogram bins in shared memory
 constexpr int kRegionThreads = 256;                 // R1, R2: 8 warps a block
-constexpr int kSumTile = 8192;                      // R1: region positions a warp sums
+constexpr int kSumTile = 8192;                      // R1: the most region positions a tile holds
+constexpr int kSumTileStep = 32;                    // R1: tiles are a multiple of this
+constexpr int kShortPiece = 32;                     // R1: shorter pieces are summed a lane each
 constexpr int kRunWarpSpan = 1024;                  // R2: region positions a warp takes
 constexpr int kRunBlock = kRegionThreads / 32 * kRunWarpSpan;  // R2: ... a block takes
 constexpr int kRunWords = kRunBlock / 32;           // R2: mask words a block
@@ -186,6 +220,69 @@ coverage_add_kernel(const int* __restrict__ starts, const int* __restrict__ ends
         }
         warp_grouped_add(diff, s, 1);
         warp_grouped_add(diff, e, -1);
+    }
+}
+
+// C1's read form. reads: int32 [4, k], rows the 1-based start, the inclusive
+// end and the range [i0, i1) of regions; regions: int32 [3, n], rows the
+// 1-based inclusive start and end and the flattened offset of each region.
+// A warp takes 32 reads and their pairs with the regions of their ranges, 32
+// pairs a step; each lane clips its pair's read to its region and adds +1 at
+// the clip's flattened start and -1 past its end. An empty clip adds
+// nothing; ranges are clamped into [0, n] (the caller's contract excludes
+// ranges outside it) and no index past `span` is written.
+__global__ void __launch_bounds__(kAddThreads)
+coverage_add_reads_kernel(const int* __restrict__ reads, int k, const int* __restrict__ regions,
+                          int n, int span, int* __restrict__ diff) {
+    const long long warp = (static_cast<long long>(blockIdx.x) * kAddThreads + threadIdx.x) >> 5;
+    const long long warps = (static_cast<long long>(gridDim.x) * kAddThreads) >> 5;
+    const int lane = threadIdx.x & 31;
+    const int* r_start = regions;
+    const int* r_end = regions + n;
+    const int* r_off = regions + 2LL * n;
+    for (long long base = warp * 32; base < k; base += warps * 32) {
+        const long long i = base + lane;
+        int qs = 0, qe = 0, i0 = 0, count = 0;
+        if (i < k) {
+            qs = __ldg(reads + i);
+            qe = __ldg(reads + k + i);
+            i0 = max(__ldg(reads + 2LL * k + i), 0);
+            count = max(min(__ldg(reads + 3LL * k + i), n) - i0, 0);
+        }
+        int incl = count;  // the lanes' pairs, scanned
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+            const int y = __shfl_up_sync(kFull, incl, o);
+            if (lane >= o) incl += y;
+        }
+        const int excl = incl - count;
+        const int pairs = __shfl_sync(kFull, incl, 31);
+        for (int p0 = 0; p0 < pairs; p0 += 32) {
+            const int p = p0 + lane;
+            // the lane whose read holds pair p: the number of lanes whose
+            // scan ends at or before p
+            int owner = 0;
+#pragma unroll
+            for (int s = 16; s > 0; s >>= 1) {
+                const int v = __shfl_sync(kFull, incl, owner + s - 1);
+                if (v <= p) owner += s;
+            }
+            const int a = __shfl_sync(kFull, qs, owner);
+            const int b = __shfl_sync(kFull, qe, owner);
+            const int r = __shfl_sync(kFull, i0, owner) + p - __shfl_sync(kFull, excl, owner);
+            int s = -1, e = -1;
+            if (p < pairs) {
+                const int rs = __ldg(r_start + r);
+                const int lo = max(a, rs), hi = min(b, __ldg(r_end + r));
+                if (lo <= hi) {
+                    s = __ldg(r_off + r) + (lo - rs);
+                    e = s + (hi - lo) + 1;
+                    if (s < 0 || e > span) s = e = -1;
+                }
+            }
+            warp_grouped_add(diff, s, 1);
+            warp_grouped_add(diff, e, -1);
+        }
     }
 }
 
@@ -644,52 +741,114 @@ __device__ __forceinline__ long long warp_range_sum(const int* __restrict__ cov,
     return acc;
 }
 
-// R1: warps stride over tiles of kSumTile region positions; each adds every
-// region's piece of its tile into out[r] (zeroed by the launcher).
-__global__ void __launch_bounds__(kRegionThreads)
-region_sums_kernel(const int* __restrict__ cov, const int* __restrict__ starts,
-                   const long long* __restrict__ offsets, int n, u64* __restrict__ out) {
-    const long long total = __ldg(offsets + n);
-    const long long tiles = (total + kSumTile - 1) / kSumTile;
-    const int lane = threadIdx.x & 31;
-    const long long warps = static_cast<long long>(gridDim.x) * (kRegionThreads / 32);
-    for (long long t = (static_cast<long long>(blockIdx.x) * kRegionThreads + threadIdx.x) >> 5;
-         t < tiles; t += warps) {
-        long long q = t * kSumTile;
-        const long long q_end = min(q + kSumTile, total);
-        for (int r = region_of(offsets, n, q); q < q_end; ++r) {
-            const long long lo = __ldg(offsets + r);
-            const long long piece_end = min(__ldg(offsets + r + 1), q_end);
-            if (piece_end > q) {  // a region of length 0 has no piece
-                const long long sum = warp_range_sum(cov, __ldg(starts + r) + (q - lo),
-                                                     static_cast<int>(piece_end - q), lane);
-                if (lane == 0) atomicAdd(out + r, static_cast<u64>(sum));
-                q = piece_end;
-            }
-        }
-    }
-}
-
 __device__ __forceinline__ bool is_hit(int c, long long cutoff, bool high) {
     return high ? c >= cutoff : c < cutoff;
 }
 
-// region_of for a q the whole warp shares: 32 probes a step, so a few steps
-// where a binary search takes log2(n) loads one after another.
+// One step of a search the whole warp shares for the region that holds q,
+// known to lie in [lo, hi]: 32 probes at once narrow the range about 32
+// times, where a binary search takes log2(n) loads one after another.
+__device__ __forceinline__ void warp_probe(const long long* __restrict__ offsets, long long q,
+                                           int& lo, int& hi) {
+    const int lane = threadIdx.x & 31;
+    // probes at lo + ceil((hi - lo)(lane + 1) / 32): lane 31's is hi
+    const int at = lo + static_cast<int>((static_cast<long long>(hi - lo) * (lane + 1) + 31) / 32);
+    const int k = __popc(__ballot_sync(kFull, __ldg(offsets + at) <= q));
+    const int at_k = __shfl_sync(kFull, at, k & 31);
+    const int at_below = __shfl_sync(kFull, at, (k + 31) & 31);
+    if (k > 0) lo = at_below;   // lanes < k probe regions starting at or before q
+    if (k < 32) hi = at_k - 1;
+}
+
+// region_of for a q the whole warp shares.
 __device__ __forceinline__ int warp_region_of(const long long* __restrict__ offsets, int n,
                                               long long q) {
-    const int lane = threadIdx.x & 31;
     int lo = 0, hi = n - 1;  // the region is in [lo, hi]
-    while (lo < hi) {
-        // probes at lo + ceil((hi - lo)(lane + 1) / 32): lane 31's is hi
-        const int at = lo + static_cast<int>((static_cast<long long>(hi - lo) * (lane + 1) + 31) / 32);
-        const int k = __popc(__ballot_sync(kFull, __ldg(offsets + at) <= q));
-        const int at_k = __shfl_sync(kFull, at, k & 31);
-        const int at_below = __shfl_sync(kFull, at, (k + 31) & 31);
-        if (k > 0) lo = at_below;   // lanes < k probe regions starting at or before q
-        if (k < 32) hi = at_k - 1;
-    }
+    while (lo < hi) warp_probe(offsets, q, lo, hi);
     return lo;
+}
+
+// cov[a] + ... + cov[a + len - 1] by one lane: scalar loads up to the first
+// 16-byte boundary, then 16 bytes at a time, then the tail.
+__device__ __forceinline__ long long lane_range_sum(const int* __restrict__ cov, long long a,
+                                                    int len) {
+    const int* base = cov + a;
+    int head = static_cast<int>((4 - (a & 3)) & 3);
+    if (head > len) head = len;
+    long long acc = 0;
+    for (int i = 0; i < head; ++i) acc += __ldg(base + i);
+    const int body = (len - head) >> 2;
+    const int4* v = reinterpret_cast<const int4*>(base + head);
+#pragma unroll 4
+    for (int i = 0; i < body; ++i) {
+        const int4 x = __ldg(v + i);
+        acc += static_cast<long long>(x.x) + x.y + x.z + x.w;
+    }
+    for (int i = head + (body << 2); i < len; ++i) acc += __ldg(base + i);
+    return acc;
+}
+
+// R1: warps stride over tiles of region positions, as many tiles as the
+// grid has warps (a multiple of kSumTileStep positions, at most kSumTile);
+// each adds every region's piece of its tile into out[r] (zeroed by the
+// launcher). Lane j holds offsets[win + j] and starts[win + j] of the
+// window of regions win .. win + 31; a step takes the pieces of the window's
+// regions from r on: those before the first piece of kShortPiece or more
+// positions a lane each, then that piece by the whole warp.
+__global__ void __launch_bounds__(kRegionThreads, 4)
+region_sums_kernel(const int* __restrict__ cov, const int* __restrict__ starts,
+                   const long long* __restrict__ offsets, int n, u64* __restrict__ out) {
+    const long long total = __ldg(offsets + n);
+    const int lane = threadIdx.x & 31;
+    const long long warps = static_cast<long long>(gridDim.x) * (kRegionThreads / 32);
+    long long tile = (total + warps - 1) / warps;
+    tile = min(max((tile + kSumTileStep - 1) / kSumTileStep * kSumTileStep,
+                   static_cast<long long>(kSumTileStep)),
+               static_cast<long long>(kSumTile));
+    const long long tiles = (total + tile - 1) / tile;
+    for (long long t = (static_cast<long long>(blockIdx.x) * kRegionThreads + threadIdx.x) >> 5;
+         t < tiles; t += warps) {
+        long long q = t * tile;
+        const long long q_end = min(q + tile, total);
+        // the region r that holds q (r < n, offsets[r] <= q): the search
+        // stops within 32 regions of it, and the window's loads end it
+        int win = 0, last = n - 1;
+        while (last - win >= 32) warp_probe(offsets, q, win, last);
+        long long win_lo = __ldg(offsets + min(win + lane, n));
+        int win_start = __ldg(starts + min(win + lane, n - 1));
+        int r = win + __popc(__ballot_sync(kFull, win + lane <= last && win_lo <= q)) - 1;
+        while (q < q_end) {
+            if (r - win >= 31) {  // lane 31 has no end in the window
+                win = r;
+                win_lo = __ldg(offsets + min(win + lane, n));
+                win_start = __ldg(starts + min(win + lane, n - 1));
+            }
+            // this lane's region win + lane: its piece [ps, pe) of the tile
+            const long long hi = __shfl_down_sync(kFull, win_lo, 1);
+            const bool in = lane >= r - win && lane < 31 && win_lo < q_end;
+            const long long ps = max(win_lo, q), pe = min(hi, q_end);
+            const int len = in && pe > ps ? static_cast<int>(pe - ps) : 0;
+            const long long at = win_start + (ps - win_lo);  // its first coverage position
+            const unsigned valid = __ballot_sync(kFull, in);   // lanes r - win .. g
+            const unsigned longs = __ballot_sync(kFull, len >= kShortPiece);
+            const int f = longs ? __ffs(longs) - 1 : 32;
+            if (lane < f && len > 0)
+                atomicAdd(out + win + lane, static_cast<u64>(lane_range_sum(cov, at, len)));
+            if (longs) {
+                const long long sum = warp_range_sum(cov, __shfl_sync(kFull, at, f),
+                                                     __shfl_sync(kFull, len, f), lane);
+                if (lane == 0) atomicAdd(out + win + f, static_cast<u64>(sum));
+                q = __shfl_sync(kFull, pe, f);
+                r = win + f + 1;
+            } else {
+                // the last region of the window that starts in the tile: the
+                // tile ends in it, or the next step takes the region after it
+                const int g = 31 - __clz(valid);
+                q = __shfl_sync(kFull, pe, g);
+                r = win + g + 1;
+            }
+        }
+    }
 }
 
 // R2: warp w of block b takes region positions [q_begin, q_begin + 1024),
@@ -931,6 +1090,17 @@ int ngs_coverage_add(const void* starts, const void* ends, long long n, int span
                      void* diff, void* stream) {
     coverage_add_kernel<<<add_grid(n), kAddThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(starts), static_cast<const int*>(ends), n, span,
+        static_cast<int*>(diff));
+    return static_cast<int>(cudaGetLastError());
+}
+
+// C1's read form: reads int32 [4, k], regions int32 [3, n] (see the kernel).
+int ngs_coverage_add_reads(const void* reads, int k, const void* regions, int n, int span,
+                           void* diff, void* stream) {
+    if (k < 0 || n < 0 || span < 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (k == 0) return static_cast<int>(cudaSuccess);
+    coverage_add_reads_kernel<<<add_grid(k), kAddThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(reads), k, static_cast<const int*>(regions), n, span,
         static_cast<int*>(diff));
     return static_cast<int>(cudaGetLastError());
 }

@@ -99,8 +99,11 @@ def build() -> tuple[Path, float]:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+    """The loaded kernel library, built on first call; later calls return it
+    without taking the lock (every wrapper calls this on every launch)."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             so, _ = build()
@@ -118,6 +121,7 @@ def library() -> ctypes.CDLL:
                                                 i, i, i, i, i, p, p, i, p]
             ll = ctypes.c_longlong
             lib.ngs_coverage_add.argtypes = [p, p, ll, i, p, p]
+            lib.ngs_coverage_add_reads.argtypes = [p, i, p, i, i, p, p]
             lib.ngs_coverage_add_records.argtypes = [p, p, p, p, p, p, i, i, i, i, p, i,
                                                      i, p, p]
             lib.ngs_coverage_scratch.argtypes = [i]
@@ -131,6 +135,7 @@ def library() -> ctypes.CDLL:
                        lib.ngs_readqc_tails, lib.ngs_insert_scan,
                        lib.ngs_adapter_evidence, lib.ngs_adapter_scan,
                        lib.ngs_seqpurge_decide, lib.ngs_coverage_add,
+                       lib.ngs_coverage_add_reads,
                        lib.ngs_coverage_add_records,
                        lib.ngs_coverage_finalize, lib.ngs_bincount_add,
                        lib.ngs_region_sums, lib.ngs_runs_count, lib.ngs_runs_write):

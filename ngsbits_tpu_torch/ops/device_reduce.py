@@ -11,7 +11,12 @@ exact in any order:
 
 - C1 ``coverage_add_into``: +1 at ``diff[start]``, -1 at ``diff[end_excl]``
   into a ``[span + 1]`` int32 difference array (without ends: unit spans at
-  the starts), for MappingQC's spans;
+  the starts), for spans made on the host (the coverage tools'
+  accumulators' ``add_spans`` and ``add_positions``);
+- C1's read form ``coverage_add_reads_into``: MappingQC's usable on-target
+  reads (start, end and the ROI's range of regions each overlaps, 16 bytes a
+  read) clipped on the card to every region of their range, into the same
+  difference array over the flattened ROI;
 - C1's record form ``coverage_add_records_into``: a BAM batch's records
   (``Records``: positions, CIGARs and, for ``-min_baseq``, qualities, all
   uploaded at once by ``upload_records``) walked on the card into the same
@@ -36,9 +41,10 @@ binary search in ``offsets``.
 
 Each wrapper follows the port's dispatch rule (``ops/pallas_kernels.py``):
 tensors on the CPU take the plain version (``index_add_`` and ``cumsum``
-for C1 and C2, the per-base expansion and ``index_add_`` for C1's record
-form, ``cumsum`` and differences for R1, masks and ``nonzero`` for
-R2, ``torch.bincount`` for B1), tensors on a CUDA device launch the kernel
+for C1 and C2, the pairs of reads and regions and ``index_add_`` for C1's
+read form, the per-base expansion and ``index_add_`` for C1's record form,
+``cumsum`` and differences for R1, masks and ``nonzero`` for R2,
+``torch.bincount`` for B1), tensors on a CUDA device launch the kernel
 on the current stream after checking device, dtype, shape and contiguity,
 or raise. Each counts its launches in ``launches``. The engines take the
 device from ``utils/backend.py`` and use no size threshold.
@@ -50,7 +56,6 @@ kernel that may still be running.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -64,8 +69,8 @@ INT32_LIMIT = 2**31 - 1
 CUTOFF_LIMIT = 2**62   # R2's cutoff is clamped to +-this (coverage is int32)
 
 
-def _optional_ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
-    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+def _optional_ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
 
 
 # --------------------------------------------------------------------------
@@ -102,6 +107,60 @@ def coverage_add_into(starts: torch.Tensor, ends: torch.Tensor | None,
 
 
 coverage_add_into.launches = 0
+
+
+# --------------------------------------------------------------------------
+# C1's read form: reads clipped to the ROI's regions
+# --------------------------------------------------------------------------
+
+def coverage_add_reads_plain(reads, regions, diff):
+    qs, qe, i0, i1 = reads.to(torch.int64)
+    rs, re, off = regions.to(torch.int64)
+    n = rs.shape[0]
+    i0 = i0.clamp(0, n)
+    count = (i1.clamp(max=n) - i0).clamp(min=0)
+    # every (read, region) pair of the reads' ranges
+    read_of = torch.repeat_interleave(torch.arange(qs.shape[0], device=diff.device), count)
+    first = torch.cumsum(count, 0) - count
+    r = i0[read_of] + torch.arange(read_of.shape[0], device=diff.device) - first[read_of]
+    lo = torch.maximum(rs[r], qs[read_of])
+    hi = torch.minimum(re[r], qe[read_of])
+    hit = lo <= hi
+    s = (off[r] + lo - rs[r])[hit]
+    ones = torch.ones(s.shape[0], dtype=diff.dtype, device=diff.device)
+    diff.index_add_(0, s, ones)
+    diff.index_add_(0, s + (hi - lo)[hit] + 1, -ones)
+
+
+def coverage_add_reads_into(reads: torch.Tensor, regions: torch.Tensor,
+                            diff: torch.Tensor) -> None:
+    """C1's read form, the counterpart of MappingQC's flattening of its
+    reads onto the ROI (``ngsbits_tpu/qc/mapping_stats.py:284-305``) and of
+    X6 after it: ``reads`` int32 ``[4, k]`` holds each read's 1-based start,
+    inclusive end and range ``[i0, i1)`` of regions; ``regions`` int32 ``[3,
+    n]`` each region's 1-based inclusive start and end and its offset in the
+    flattened ROI (``DeviceCoverage`` makes it). For each read and each
+    region of its range, the read clipped to the region adds +1 at the
+    clip's flattened start and -1 past its end of the int32 ``[span + 1]``
+    difference array; an empty clip adds nothing. ``DeviceCoverage.add_reads``
+    checks the reads against the contract (ranges within ``[0, n]``, ``i0 <=
+    i1``, ``end >= start - 1``) before the upload."""
+    if _route(reads, regions, diff) == "cpu":
+        return coverage_add_reads_plain(reads, regions, diff)
+    k = reads.shape[1] if reads.dim() == 2 else -1
+    n = regions.shape[1] if regions.dim() == 2 else -1
+    _check("reads", reads, torch.int32, (4, k))
+    _check("regions", regions, torch.int32, (3, n))
+    _check("diff", diff, torch.int32, (diff.shape[0],))
+    if k == 0:
+        return
+    rc = _lib().ngs_coverage_add_reads(_ptr(reads), k, _ptr(regions), n, diff.shape[0] - 1,
+                                       _ptr(diff), _stream(diff))
+    _launched("coverage_add_reads", rc)
+    coverage_add_reads_into.launches += 1
+
+
+coverage_add_reads_into.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -555,15 +614,21 @@ bincount_add_into.launches = 0
 # --------------------------------------------------------------------------
 
 def _upload(rows: list[np.ndarray], dev: torch.device) -> torch.Tensor:
-    """int32 ``[len(rows), n]`` on ``dev`` in one copy."""
-    return torch.from_numpy(np.stack([np.asarray(r, dtype=np.int32) for r in rows])).to(dev)
+    """int32 ``[len(rows), n]`` on ``dev`` in one copy (each row written
+    once into the host buffer; values must fit int32)."""
+    buf = np.empty((len(rows), len(rows[0])), dtype=np.int32)
+    for k, r in enumerate(rows):
+        buf[k] = r
+    return torch.from_numpy(buf).to(dev)
 
 
 class DeviceCoverage:
     """Coverage of one span (positions 0..span-1), its difference array on
     the device: ``add`` scatters each batch of spans at once (C1);
-    ``add_records`` walks a batch's alignment records on the device (C1's
-    record form), into ``blocks`` of genomic positions given at set-up;
+    ``add_reads`` clips each batch of reads to ``regions`` given at set-up
+    (C1's read form); ``add_records`` walks a batch's alignment records on
+    the device (C1's record form), into ``blocks`` of genomic positions
+    given at set-up;
     ``histogram`` returns the depth histogram and the half-depth count (C2);
     ``region_sums`` (C2's dense mode, then R1) and ``runs`` (then R2) return
     per-region results; ``coverage_at`` and ``finalize`` take the dense
@@ -571,11 +636,15 @@ class DeviceCoverage:
     back to the host."""
 
     def __init__(self, span: int, device: torch.device | None = None,
-                 blocks: np.ndarray | None = None):
+                 blocks: np.ndarray | None = None, regions: np.ndarray | None = None):
         """``blocks`` (optional): int64 ``[2, n]``, the genomic starts and
         exclusive ends (0-based, sorted, disjoint) of the positions the span
         holds, in order (a dense box is one block), for ``add_records``;
-        uploaded here once, with each block's offset."""
+        uploaded here once, with each block's offset. ``regions``
+        (optional): ``[2, n]``, the 1-based inclusive starts and ends of the
+        regions whose positions the span holds end to end (a ROI, flattened),
+        for ``add_reads``; uploaded here once as int32 ``[3, n]`` with each
+        region's offset."""
         if span + 1 > INT32_LIMIT:
             raise ValueError(f"span {span}: int32 coordinates need span < 2^31 - 1")
         self.span = span
@@ -592,6 +661,17 @@ class DeviceCoverage:
                                  f"and hold the span's {span} positions")
             off = np.concatenate(([0], np.cumsum(lengths)[:-1]))
             self.blocks = torch.from_numpy(np.stack([bs, be, off])).to(self.device)
+        self.regions = None
+        if regions is not None:
+            rs, re = np.asarray(regions, dtype=np.int64).reshape(2, -1)
+            lengths = re - rs + 1
+            if (len(rs) and (lengths.min() < 0 or rs.min() < -INT32_LIMIT
+                             or re.max() > INT32_LIMIT)) or lengths.sum() != span:
+                raise ValueError(f"regions must end no earlier than the base before their "
+                                 f"start, lie within int32 and hold the span's {span} "
+                                 f"positions")
+            off = np.concatenate(([0], np.cumsum(lengths)[:-1]))
+            self.regions = _upload([rs, re, off], self.device)
 
     def add(self, starts: np.ndarray, ends_excl: np.ndarray | None = None):
         """Adds the half-open spans ``[starts[i], ends_excl[i])``, or without
@@ -611,6 +691,28 @@ class DeviceCoverage:
         else:
             se = _upload([s, e], self.device)
             coverage_add_into(se[0], se[1], self.diff)
+
+    def add_reads(self, starts: np.ndarray, ends: np.ndarray, i0: np.ndarray,
+                  i1: np.ndarray):
+        """Adds each read ``[starts[i], ends[i]]`` (1-based, inclusive)
+        clipped to each of the regions ``i0[i] <= r < i1[i]``, in one upload
+        of 16 bytes a read (``coverage_add_reads_into``). Raises ValueError,
+        on every device, for a range outside ``[0, n]`` or with ``i1 < i0``,
+        or a read that ends before it starts (``end < start - 1``)."""
+        if self.regions is None:
+            raise ValueError("add_reads needs the coverage's regions")
+        if not len(starts):
+            return
+        s, e, a, b = (np.asarray(c, dtype=np.int64) for c in (starts, ends, i0, i1))
+        n = self.regions.shape[1]
+        if (a.min() < 0 or b.max() > n or (b - a).min() < 0 or (e - s).min() < -1
+                or s.min() < -INT32_LIMIT or e.max() > INT32_LIMIT):
+            i = int(np.argmax((a < 0) | (b > n) | (b < a) | (e < s - 1)
+                              | (s < -INT32_LIMIT) | (e > INT32_LIMIT)))
+            raise ValueError(f"read [{s[i]}, {e[i]}] with regions [{a[i]}, {b[i]}) is outside "
+                             f"the contract: ranges within [0, {n}], reads within int32 that "
+                             f"end no earlier than the base before their start")
+        coverage_add_reads_into(_upload([s, e, a, b], self.device), self.regions, self.diff)
 
     def add_records(self, rec: Records, r0: int, r1: int, ref: int, min_baseq: int):
         """Adds the records ``r0 <= r < r1`` of a batch whose key is ``ref``

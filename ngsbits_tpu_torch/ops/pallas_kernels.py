@@ -12,18 +12,16 @@ The three ReadQC kernels add into caller-given int64 accumulators, so a
 stream of batches updates one set of tensors in place. K2 writes its outputs
 in full, as int16. The adapter scans and the decisions of SeqPurge live in
 ``ops/seqpurge.py``, the coverage and pileup kernels in ``ops/device_reduce.py``;
-both share the checks here. ``ngsbits_tpu_torch.ops.KERNELS`` lists all thirteen
+both share the checks here. ``ngsbits_tpu_torch.ops.KERNELS`` lists all fourteen
 wrappers.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 # module reference: ops/readqc.py imports this module in turn
-from . import readqc
+from . import _build, readqc
 
 READ_Q_BINS = 100   # per-read rounded mean quality
 QDIST_BINS = 60     # Histogram(0, 60, 1)
@@ -32,36 +30,51 @@ QDIST_BINS = 60     # Histogram(0, 60, 1)
 # --------------------------------------------------------------------------
 # checks shared by the wrappers
 # --------------------------------------------------------------------------
+# A wrapper's call from Python costs about as much as its kernel on the card
+# at the main path's small batches, so these do no more than they must:
+# every launcher's pointer and stream arguments are declared ``c_void_p``
+# (``_build.library``), so plain ints pass without a ctypes object each, and
+# the loaded library comes back without a lock after the first call.
 
 def _route(*tensors: torch.Tensor) -> str:
     """'cpu' or 'cuda' for a set of tensors that all lie on one device."""
-    dev = tensors[0].device
+    first = tensors[0]
+    if first.is_cuda:  # device indices as ints: no ``torch.device`` objects
+        index = first.get_device()
+        for t in tensors:
+            if not t.is_cuda or t.get_device() != index:
+                raise ValueError(f"tensors on different devices: {first.device} and {t.device}")
+        return "cuda"
+    dev = first.device
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"tensors on different devices: {dev} and {t.device}")
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type != "cpu":
         raise ValueError(f"no kernel for device type '{dev.type}'")
-    return dev.type
+    return "cpu"
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
            align: int = 1):
-    if t.dtype != dtype:
+    if t.dtype is not dtype:  # dtypes are singletons
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != shape:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
-    if t.data_ptr() % align:
+    if align > 1 and t.data_ptr() % align:
         raise ValueError(f"{name}: address not {align}-byte aligned")
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def _ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
 
 
-def _stream(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def _stream(t: torch.Tensor) -> int:
+    """The raw handle of the current stream of ``t``'s device (what
+    ``torch.cuda.current_stream(t.device).cuda_stream`` gives, without
+    making a ``Stream`` object)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _launched(name: str, rc: int):
@@ -73,9 +86,7 @@ def _base_codes(device: torch.device) -> torch.Tensor:
     return torch.tensor(readqc.BASE_CODES.tolist(), dtype=torch.uint8, device=device)
 
 
-def _lib():
-    from . import _build
-    return _build.library()
+_lib = _build.library
 
 
 # --------------------------------------------------------------------------

@@ -13,11 +13,13 @@ profiles, fixed read lengths and bytes past the lengths that are not zero;
 ``insert_case`` makes K2's for any rows, and ``insert_edge_pairs`` rows at
 the edges of its contract.
 ``coverage_add_case``, ``coverage_finalize_case`` and ``bincount_case`` make
-MappingQC's (C1, C2, B1) on ``coverage_spans`` and ``pileup_indices``;
+MappingQC's (C1, C2, B1) on ``coverage_spans`` and ``pileup_indices``, and
+``coverage_add_reads_case`` its C1 read form on ``roi_reads``;
 ``coverage_dense_case`` (C2 without its histogram), ``region_sums_case``
 (R1) and ``threshold_runs_case`` (R2) the coverage tools', on
-``coverage_regions``; ``coverage_add_records_case`` their C1 record form,
-on ``alignment_records`` (a BAM batch's columns with every CIGAR op).
+``coverage_regions`` and (R1) ``r1_regions``; ``coverage_add_records_case``
+their C1 record form, on ``alignment_records`` (a BAM batch's columns with
+every CIGAR op).
 ``max_abs_err`` compares the two after both ran once. Each case also counts
 the work the function must do on its inputs: ``bytes`` (each input read once,
 each output written once; for K1 only the bytes inside the reads) and ``ops``
@@ -513,8 +515,8 @@ def decide_case_for(read1, read2, seq2rc, len1, len2, min_len, quals,
 
 def coverage_spans(span: int, n: int, seed: int = 0, max_len: int = 400,
                    pile: int = 0, pile_len: int = 50):
-    """``n`` half-open spans over positions 0..span-1 as MappingQC's scan
-    gives C1 (int32 starts and exclusive ends): lengths 0..``max_len``
+    """``n`` half-open spans over positions 0..span-1 as the host makes them
+    for C1's span form (int32 starts and exclusive ends): lengths 0..``max_len``
     (some 0), clipped to the span, some starting at 0 and some ending at
     ``span``; then ``pile`` spans over one window of ``pile_len`` positions,
     for coverage far above the histogram's range."""
@@ -543,6 +545,91 @@ def coverage_add_case(starts: torch.Tensor, ends: torch.Tensor, span: int) -> Ca
                 lambda: dr.coverage_add_into(starts, ends, dk),
                 lambda: dr.coverage_add_plain(starts, ends, dp),
                 lambda: ([dk], [dp]), bytes=8 * n, ops=2 * n)
+
+
+def roi_reads(n: int, seed: int = 0, n_chroms: int = 3, n_regions: int = 60,
+              width: int = 100_000):
+    """A ROI and ``n`` reads as MappingQC's scan hands them to C1's read
+    form. The ROI: ``n_regions`` sorted, disjoint regions of 1-400 bp a
+    chromosome (some of one base, some touching the one before) on each of
+    ``n_chroms`` chromosomes of ``width`` bases, as int64 (chromosome,
+    1-based start, inclusive end), chromosome by chromosome. The reads, on
+    every chromosome: int64 (chromosome, 1-based start, inclusive end, and
+    the range ``[i0, i1)`` of the ROI's regions each overlaps, as
+    ``RoiLookup.overlap_range`` finds it), mostly 20-300 bp near the
+    regions, with reads that end at a region's first base or start at its
+    last, reads in no region, reads of no reference length (``end = start -
+    1``), reads over many regions (up to 30 kb, as a spliced alignment
+    spans) and reads over the ROI's last region."""
+    rng = np.random.default_rng(seed)
+    rc, rs, re = [], [], []
+    for c in range(n_chroms):
+        gaps = rng.integers(1, 2 * width // n_regions, size=n_regions)
+        lens = rng.integers(1, 401, size=n_regions)
+        lens[::9] = 1
+        gaps[5::11] = 1    # touching the region before
+        s = 1 + np.cumsum(gaps) + np.concatenate(([0], np.cumsum(lens[:-1])))
+        rc.append(np.full(n_regions, c))
+        rs.append(s)
+        re.append(s + lens - 1)
+    rc, rs, re = (np.concatenate(a).astype(np.int64) for a in (rc, rs, re))
+    k = rng.integers(0, n_regions * n_chroms, size=n)  # a region each read is near
+    chrom = rc[k]
+    qs = rs[k] + rng.integers(-300, 300, size=n)
+    qe = qs + rng.integers(19, 300, size=n)
+    kind = rng.random(n)
+    at_end = kind < 0.05                   # a read ending at its region's first base
+    qe[at_end] = rs[k][at_end]
+    qs[at_end] = qe[at_end] - rng.integers(0, 150, size=int(at_end.sum()))
+    at_start = (kind >= 0.05) & (kind < 0.10)   # ... starting at its last
+    qs[at_start] = re[k][at_start]
+    qe[at_start] = qs[at_start] + rng.integers(0, 150, size=int(at_start.sum()))
+    empty = (kind >= 0.10) & (kind < 0.13)
+    qe[empty] = qs[empty] - 1              # no reference length
+    long = (kind >= 0.13) & (kind < 0.16)
+    qe[long] = qs[long] + rng.integers(1000, 30_000, size=int(long.sum()))
+    last = (kind >= 0.16) & (kind < 0.18)   # over the ROI's last region
+    chrom[last] = n_chroms - 1
+    qs[last] = rs[-1] + rng.integers(-200, int(re[-1] - rs[-1]) + 1, size=int(last.sum()))
+    qe[last] = qs[last] + rng.integers(0, 300, size=int(last.sum()))
+    off = kind >= 0.97                    # in no region: past a chromosome's last one
+    qs[off] = re[(chrom[off] + 1) * n_regions - 1] + rng.integers(1, 5000, size=int(off.sum()))
+    qe[off] = qs[off] + 150
+    qs = np.maximum(qs, 1)
+    qe = np.maximum(qe, qs - 1)
+    i0, i1 = np.zeros(n, np.int64), np.zeros(n, np.int64)
+    for c in range(n_chroms):
+        m = chrom == c
+        lo = c * n_regions
+        i0[m] = lo + np.searchsorted(re[lo:lo + n_regions], qs[m], side="left")
+        i1[m] = np.maximum(lo + np.searchsorted(rs[lo:lo + n_regions], qe[m], side="right"),
+                           i0[m])
+    return (rc, rs, re), (chrom, qs, qe, i0, i1)
+
+
+def coverage_add_reads_case(reads: torch.Tensor, regions: torch.Tensor, span: int) -> Case:
+    """C1's read form adding the reads (int32 ``[4, k]``) clipped to the
+    regions (int32 ``[3, n]``, as ``DeviceCoverage`` holds them) into a
+    ``[span + 1]`` difference array; kernel and plain version add at the
+    same indices, so the arrays themselves are compared. Bytes: 16 a read
+    and 12 a region that a read's range holds, read once (the counters it
+    adds into stay in L2 between batches); operations: two atomic additions
+    a (read, region) pair."""
+    dk, dp = (torch.zeros(span + 1, dtype=torch.int32, device=reads.device)
+              for _ in range(2))
+    k, n = reads.shape[1], regions.shape[1]
+    _, _, i0, i1 = reads.cpu().numpy().astype(np.int64)
+    i0 = np.clip(i0, 0, n)
+    i1 = np.maximum(np.clip(i1, 0, n), i0)
+    held = np.zeros(n + 1, dtype=np.int64)   # regions in some read's range
+    np.add.at(held, i0, 1)
+    np.add.at(held, i1, -1)
+    regions_read = int((np.cumsum(held)[:n] > 0).sum())
+    return Case("coverage_add_reads", dr.coverage_add_reads_into,
+                lambda: dr.coverage_add_reads_into(reads, regions, dk),
+                lambda: dr.coverage_add_reads_plain(reads, regions, dp),
+                lambda: ([dk], [dp]), bytes=16 * k + 12 * regions_read,
+                ops=2 * int((i1 - i0).sum()))
 
 
 def coverage_diff(starts: np.ndarray, ends: np.ndarray, span: int,
@@ -616,6 +703,53 @@ def coverage_regions(span: int, n: int, seed: int = 0, max_len: int = 400,
     starts = np.concatenate([starts, edges_s, starts[:3]])
     ends = np.concatenate([ends, edges_e, ends[:3]])
     return starts.astype(np.int64), ends.astype(np.int64)
+
+
+# R1's inputs that its tiling treats differently (``r1_regions``)
+R1_KINDS = ("exome", "straddling", "overlapping", "longer than a tile", "one position",
+            "dense panel")
+
+
+def r1_regions(kind: str, seed: int = 0) -> tuple[int, np.ndarray, np.ndarray]:
+    """(span, int64 starts, inclusive ends) of regions over positions
+    0..span-1 that R1's tiling treats differently: ``exome`` 3,000
+    disjoint 1-400 bp regions over a box of 1,000,003 positions (tiles of a
+    few hundred positions, a piece or two each); ``straddling`` 20,000
+    regions of 1-60 positions laid end to end, so tiles begin and end inside
+    them at every phase and most pieces are summed a lane each; ``overlapping``
+    3,000 regions of 1-400 bp in random order, overlapping and repeated;
+    ``longer than a tile`` 2,000 short regions and 12 of 9,000-40,000
+    positions (more than a tile's 8,192) among them; ``one position`` 5,000
+    regions of one position, a fifth of them repeated; ``dense panel``
+    250,000 disjoint 1-400 bp regions over 60,000,017 positions (tiles of
+    8,192 with many pieces each, for the card only)."""
+    rng = np.random.default_rng(seed)
+    if kind == "exome":
+        span = 1_000_003
+        return (span, *coverage_regions(span, 3000, seed=seed, disjoint=True))
+    if kind == "straddling":
+        lens = rng.integers(1, 61, size=20_000)
+        starts = np.concatenate(([0], np.cumsum(lens[:-1])))
+        return int(lens.sum()) + 5, starts, starts + lens - 1
+    if kind == "overlapping":
+        span = 200_003
+        return (span, *coverage_regions(span, 3000, seed=seed))
+    if kind == "longer than a tile":
+        span = 700_001
+        s, e = coverage_regions(span, 2000, seed=seed, max_len=100, disjoint=True)
+        ls = rng.integers(0, span - 40_000, size=12)
+        le = ls + rng.integers(9_000, 40_000, size=12)
+        order = rng.permutation(len(s) + 12)
+        return span, np.concatenate([s, ls])[order], np.concatenate([e, le])[order]
+    if kind == "one position":
+        span = 50_021
+        s = rng.integers(0, span, size=5000)
+        s[::5] = s[1::5]
+        return span, s, s.copy()
+    if kind == "dense panel":
+        span = 60_000_017
+        return (span, *coverage_regions(span, 250_000, seed=seed, disjoint=True, max_len=200))
+    raise ValueError(f"no R1 regions of kind {kind!r}")
 
 
 def _region_tensors(cov: torch.Tensor, starts: np.ndarray, ends: np.ndarray):

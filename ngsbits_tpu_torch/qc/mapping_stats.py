@@ -172,10 +172,11 @@ class MappingScan:
         self.max_length = 0
         self.paired_end = False
         self.reads_per_ref: np.ndarray | None = None
-        # the ROI depth's difference array lives on the device (C1 per
-        # batch, C2 once at the end); DeviceCoverage checks that the
-        # flattened ROI fits int32 coordinates
-        self._roi_dev = (DeviceCoverage(int(roi.flat_off[-1]))
+        # the ROI depth's difference array lives on the device (C1's read
+        # form per batch, C2 once at the end), the ROI's regions beside it;
+        # DeviceCoverage checks that the flattened ROI fits int32 coordinates
+        self._roi_dev = (DeviceCoverage(int(roi.flat_off[-1]),
+                                        regions=np.stack([roi.starts, roi.ends]))
                          if roi is not None else None)
         self.gc_chunk_weights = (np.zeros(dropout.n, dtype=np.float64)
                                  if dropout is not None else None)
@@ -282,21 +283,9 @@ class MappingScan:
                 np.add.at(self.bases_usable_dp, dpu, ol)
                 self.bases_usable_raw += int((ol * (dp_vals[u] + 1)).sum())
 
-                # flattened-ROI coverage diff updates: first/last clipped,
-                # each overlapped region gets its clipped span
-                cnt = i1 - i0
-                rep = np.repeat(np.arange(len(gu)), cnt)
-                regions = np.repeat(i0, cnt) + (
-                    np.arange(int(cnt.sum()), dtype=np.int64)
-                    - np.repeat(np.concatenate(([0], np.cumsum(cnt[:-1]))), cnt))
-                r_start = self.roi.starts[regions]
-                r_end = self.roi.ends[regions]
-                ol_s = np.maximum(r_start, qs[rep])
-                ol_e = np.minimum(r_end, qe[rep])
-                flat_s = self.roi.flat_off[regions] + (ol_s - r_start)
-                flat_e = flat_s + (ol_e - ol_s)
-                self._roi_dev.add(flat_s.astype(np.int32),
-                                  (flat_e + 1).astype(np.int32))
+                # flattened-ROI coverage: the card clips each read to each
+                # region of its range
+                self._roi_dev.add_reads(qs, qe, i0, i1)
 
                 # paired-end mate-overlap subtraction
                 fl = batch.flag[gu]

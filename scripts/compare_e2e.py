@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""ReadQC and SeqPurge end to end: this checkout against another, in turns.
+"""ReadQC, SeqPurge and MappingQC end to end: this checkout against another, in turns.
 
     python3 scripts/compare_e2e.py --other DIR [--reads 2000000]
+                                   [--tools ReadQC,SeqPurge,MappingQC]
 
 Writes the inputs chip_smoke.py drives (a seeded paired gzip FASTQ of
 2 x N reads x 151 bp for ReadQC, seeded short-insert read pairs for
-SeqPurge) under build/compare_e2e/, then runs each tool in a fresh process
-from each checkout (``python -c``, the checkout's own ``ngsbits_tpu_torch``),
-in the order other, this, this, other, so that a drift of the shared host
-shows in both. Each process times ``tool.execute`` itself, from the call to
-the last device synchronisation; a first run per checkout on a short prefix
-builds its libraries, untimed. Prints reads/s (both mates) or pairs/s per
-run (for SeqPurge with the engine's seconds by stage) and, last, one JSON
-line with every run. The device is the one
-NGSBITS_TORCH_DEVICE names (cuda by default).
+SeqPurge, the synthetic exome for MappingQC: genome, panel and a BAM of
+N pairs, ``-roi -read_qc`` with the contamination check) under
+build/compare_e2e/, then runs each tool in a fresh process from each
+checkout (``python -c``, the checkout's own ``ngsbits_tpu_torch``), in the
+order other, this, this, other, so that a drift of the shared host shows in
+both. Each process times ``tool.execute`` itself, from the call to the last
+device synchronisation; a first run per checkout on a short prefix builds
+its libraries, untimed. Prints reads/s (both mates; MappingQC: the BAM's
+records) or pairs/s per run, with the tool's seconds by stage (SeqPurge's
+engine, MappingQC's passes), and, last, one JSON line with every run. The
+device is the one NGSBITS_TORCH_DEVICE names (cuda by default).
 """
 
 from __future__ import annotations
@@ -40,7 +43,8 @@ rc = tool.execute(sys.argv[2:])
 if torch.cuda.is_available():
     torch.cuda.synchronize()
 seconds = time.perf_counter() - t0
-print(json.dumps(getattr(getattr(tool, "engine", None), "seconds", {})))
+print(json.dumps(getattr(getattr(tool, "engine", None), "seconds", None)
+                 or getattr(tool, "seconds", {})))
 print(seconds, rc)
 """
 
@@ -70,8 +74,12 @@ def main(argv: list[str] | None = None) -> int:
                     help="the checkout to compare with (e.g. the parent commit)")
     ap.add_argument("--reads", type=int, default=2_000_000,
                     help="reads per mate and pairs (default 2,000,000)")
+    ap.add_argument("--tools", default="ReadQC,SeqPurge,MappingQC",
+                    help="the tools to compare, comma-separated (default: all three)")
     args = ap.parse_args(argv)
+    tools = args.tools.split(",")
     sys.path.insert(0, str(ROOT))
+    from ngsbits_tpu_torch.utils import synth
     from ngsbits_tpu_torch.utils.synth import synth_fastq, synth_pairs
 
     WORK.mkdir(parents=True, exist_ok=True)
@@ -79,12 +87,23 @@ def main(argv: list[str] | None = None) -> int:
     try:
         rq = [WORK / "rq1.fastq.gz", WORK / "rq2.fastq.gz"]
         sp = [WORK / "sp1.fastq.gz", WORK / "sp2.fastq.gz"]
-        synth_fastq(rq[0], args.reads, READ_LEN, seed=42)
-        synth_fastq(rq[1], args.reads, READ_LEN, seed=43)
-        synth_pairs(sp[0], sp[1], args.reads, seed=7, read_len=READ_LEN)
+        mq = [WORK / "mq.bam", WORK / "mq.bed", WORK / "mq.fa"]
+        if "ReadQC" in tools:
+            synth_fastq(rq[0], args.reads, READ_LEN, seed=42)
+            synth_fastq(rq[1], args.reads, READ_LEN, seed=43)
+        synth_pairs(sp[0], sp[1], args.reads if "SeqPurge" in tools else 10_000, seed=7,
+                    read_len=READ_LEN)
         small = [WORK / "small1.fastq.gz", WORK / "small2.fastq.gz"]
         for src, dst in zip(sp, small):
             _prefix(src, dst, 10_000)
+        if "MappingQC" in tools:  # chip_smoke.py's exome: 24 chromosomes of 8 Mb
+            lengths = {f"chr{c}": 8_000_000 for c in [*range(1, 23), "X", "Y"]}
+            chrom, pos, ref, alt, _ = synth.known_snvs(lengths)
+            genome = synth.synth_genome(mq[2], lengths, seed=11, set_bases=[
+                (name, pos[chrom == k], ref[chrom == k]) for k, name in enumerate(lengths)])
+            roi = synth.synth_roi(mq[1], genome, 60_000, seed=12, anchors=(chrom, pos - 1))
+            synth.synth_bam(mq[0], genome, args.reads, seed=13, roi=roi,
+                            snps=(chrom, pos - 1, alt))
 
         def readqc(name, files):
             return ["ReadQC", "-in1", str(files[0]), "-in2", str(files[1]),
@@ -99,13 +118,20 @@ def main(argv: list[str] | None = None) -> int:
 
         for name, tree in trees.items():  # builds each checkout's libraries
             _run(tree, seqpurge(f"warm_{name}", small))
+        def mappingqc(name, files):
+            return ["MappingQC", "-in", str(files[0]), "-roi", str(files[1]), "-ref",
+                    str(files[2]), "-out", str(WORK / f"{name}.mq.qcML"), "-read_qc",
+                    str(WORK / f"{name}.rq.qcML")]
+
         runs = []
-        for tool, make, count in (("ReadQC", readqc, 2 * args.reads),
-                                  ("SeqPurge", seqpurge, args.reads)):
-            files = rq if tool == "ReadQC" else sp
+        for tool, make, count, files in (("ReadQC", readqc, 2 * args.reads, rq),
+                                         ("SeqPurge", seqpurge, args.reads, sp),
+                                         ("MappingQC", mappingqc, 2 * args.reads, mq)):
+            if tool not in tools:
+                continue
             for i, name in enumerate(("other", "this", "this", "other")):
                 seconds, stages = _run(trees[name], make(f"{name}{i}", files))
-                unit = "reads/s" if tool == "ReadQC" else "pairs/s"
+                unit = "pairs/s" if tool == "SeqPurge" else "reads/s"
                 split = ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
                 print(f"{tool:8s} {name:5s} run {i}: {seconds:.3f} s, "
                       f"{count / seconds:.0f} {unit}" + (f"; {split}" if split else ""),

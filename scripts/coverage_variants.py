@@ -1,20 +1,21 @@
 #!/usr/bin/env python3
-"""C2 (the coverage prefix sum), R2 (threshold runs) and C1's record form beside variants of themselves, timed on the card.
+"""C2 (the coverage prefix sum), R1 (region sums), R2 (threshold runs) and C1's record form beside variants of themselves, timed on the card.
 
-    python3 scripts/coverage_variants.py [--kernel finalize|runs|records] [--parent DIR]
+    python3 scripts/coverage_variants.py [--kernel finalize|sums|runs|records] [--parent DIR]
 
 Builds variants of ``ngsbits_tpu_torch/csrc/coverage.cu`` under
 build/coverage_variants/ (one nvcc per variant, all at once), each a copy of
 the source with checked text substitutions, and times C2
 (``--kernel finalize``, the default: the dense mode alone and the histogram
-mode), R2 (``--kernel runs``: both passes, without the fetch of the totals
-between them) or C1's record form (``--kernel records``). Every variant's
+mode), R1 (``--kernel sums``: its memset and kernel), R2 (``--kernel
+runs``: both passes, without the fetch of the totals between them) or C1's
+record form (``--kernel records``). Every variant's
 outputs are held equal to the plain version first. With ``--parent DIR`` (a
 checkout of another commit, e.g. ``git archive HEAD~1 | tar -x -C
 build/parent``), that commit's coverage.cu is built and its kernel timed
 too, as ``parent``, with the scratch and arguments that source takes (a
 ``tile_sums`` buffer for C2 and a scan buffer for R2 before the single-pass
-designs; C1's record form has no parent).
+designs; C1's record form only from a commit that has it).
 
 Shapes, as the coverage tools and MappingQC hand them to the kernels:
 
@@ -23,6 +24,11 @@ Shapes, as the coverage tools and MappingQC hand them to the kernels:
       it) and at the exome's largest flattened box (773,011 positions, depth
       about 24); the histogram mode at MappingQC's launch (span 13,861,233,
       step 5, hist_max 599, 120 bins, half depth 12, depth about 24)
+  R1  chr1's box as one region; the exome's largest box as BedCoverage
+      hands it over (3,574 unmerged regions of 100-400 bp over its 773,011
+      positions, depth about 24); a dense panel of 250,000 regions of
+      1-200 bp over 60,000,017 positions (``selfcheck.r1_regions``: tiles
+      of 8,192 positions with many pieces each)
   R2  chr1's box as one region (cutoff 29, about 30 everywhere) and the
       exome's largest box: 2,728 touching regions over its 773,011
       positions (cutoff 20)
@@ -44,6 +50,22 @@ Shapes, as the coverage tools and MappingQC hand them to the kernels:
                  __launch_bounds__ (as built: 5 blocks of 256 threads an SM)
   C2: 128 threads, 512 threads   tiles of 4096 and 16,384 positions (10
                  and 2 blocks an SM)
+  R1: tiles of 8192              every tile 8,192 positions, however
+                 little the work (the first design's tiling; as built: as many
+                 tiles as the grid has warps, 32 to 8,192 positions each)
+  R1: no lane pieces             every piece summed by the whole warp (as
+                 built: pieces under 32 positions a lane each)
+  R1: lane pieces under 128      pieces under 128 positions a lane each
+  R1: unroll 8                   the warp's 16-byte loads unrolled 8 times
+                 (as built: 4)
+  R1: no block cap               __launch_bounds__ without a count of blocks
+                 (as built: 4 blocks an SM, as the grid has; 64 registers)
+  R1: 6 blocks/SM, 8 blocks/SM   a grid of 6 or 8 blocks an SM with the
+                 register cap for as many (smaller tiles where the work is
+                 small, more warps resident)
+  R1 ablations (outputs wrong, not checked): no memset (the launcher's
+                 clearing of the sums), empty kernel (a memset and a launch
+                 that returns at once: the floor of a launcher call)
   R2: batch 4, batch 16          mask words of loads in flight a warp
   R2: 6 blocks/SM, 8 blocks/SM   register caps by __launch_bounds__
   torch.cumsum   C2's yardstick: one PyTorch call for the dense coverage
@@ -278,7 +300,35 @@ RECORDS_VARIANTS = {
 }
 _ABLATIONS.add("no quality loads")
 _ABLATIONS.add("no atomics")
-VARIANTS = {"finalize": FINALIZE_VARIANTS, "runs": RUNS_VARIANTS, "records": RECORDS_VARIANTS}
+_TILE_STEP = "constexpr int kSumTileStep = 32;"
+_SHORT = "constexpr int kShortPiece = 32;"
+_WARP_SUM = "#pragma unroll 4\n    for (int i = lane; i < body; i += 32) {"
+_R1_BOUNDS = "__global__ void __launch_bounds__(kRegionThreads, 4)\nregion_sums_kernel("
+_R1_GRID = "region_sums_kernel<<<4 * ngs::sm_count()"
+SUMS_VARIANTS = {
+    "as built": [],
+    "tiles of 8192": [(_TILE_STEP, _TILE_STEP.replace("32", "8192"))],
+    "no lane pieces": [(_SHORT, _SHORT.replace("32", "1"))],
+    "lane pieces under 128": [(_SHORT, _SHORT.replace("32", "128"))],
+    "unroll 8": [(_WARP_SUM, _WARP_SUM.replace("unroll 4", "unroll 8"))],
+    "no block cap": [(_R1_BOUNDS, _R1_BOUNDS.replace("(kRegionThreads, 4)", "(kRegionThreads)"))],
+    "6 blocks/SM": [(_R1_BOUNDS, _R1_BOUNDS.replace(", 4)", ", 6)")),
+                    (_R1_GRID, _R1_GRID.replace("4 *", "6 *"))],
+    "8 blocks/SM": [(_R1_BOUNDS, _R1_BOUNDS.replace(", 4)", ", 8)")),
+                    (_R1_GRID, _R1_GRID.replace("4 *", "8 *"))],
+    "no memset": [("    cudaError_t err = cudaMemsetAsync(out, 0, static_cast<size_t>(n) * "
+                   "sizeof(u64), s);\n    if (err != cudaSuccess) return static_cast<int>(err);\n",
+                   "")],
+    "empty kernel": [(_R1_BOUNDS + "const int* __restrict__ cov, const int* __restrict__ "
+                      "starts,\n                   const long long* __restrict__ offsets, int n, "
+                      "u64* __restrict__ out) {\n",
+                      _R1_BOUNDS + "const int* __restrict__ cov, const int* __restrict__ "
+                      "starts,\n                   const long long* __restrict__ offsets, int n, "
+                      "u64* __restrict__ out) {\n    if (n > 0) return;\n")],
+}
+_ABLATIONS.update({"no memset", "empty kernel"})
+VARIANTS = {"finalize": FINALIZE_VARIANTS, "sums": SUMS_VARIANTS, "runs": RUNS_VARIANTS,
+            "records": RECORDS_VARIANTS}
 
 
 def _variant_source(subs: list[tuple[str, str]]) -> str:
@@ -290,21 +340,25 @@ def _variant_source(subs: list[tuple[str, str]]) -> str:
     return text
 
 
-def _bind(lib: ctypes.CDLL, parent: bool) -> ctypes.CDLL:
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """The launchers' arguments (the same before the single-pass designs) and
-    the scratch sizes (then: C2's int32 tile sums, R2's tiles)."""
+    the scratch sizes (then: C2's int32 tile sums, R2's tiles; such a
+    library gets ``first_designs``)."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    parent = lib.first_designs = hasattr(lib, "ngs_coverage_tiles")
     lib.ngs_coverage_finalize.argtypes = [p, i, i, i, i, i, p, p, p, p, p]
     lib.ngs_runs_count.argtypes = [p, ll, p, p, i, ll, i, p, p]
     lib.ngs_runs_write.argtypes = [p, ll, p, p, i, ll, i, p, i, p, p]
+    lib.ngs_region_sums.argtypes = [p, p, p, i, p, p]
     sizes = ((lib.ngs_coverage_tiles, i), (lib.ngs_runs_tiles, ll)) if parent else \
         ((lib.ngs_coverage_scratch, i), (lib.ngs_runs_scratch, ll))
     for fn, arg in sizes:
         fn.argtypes = [arg]
         fn.restype = ctypes.c_int if parent else ll
-    for fn in (lib.ngs_coverage_finalize, lib.ngs_runs_count, lib.ngs_runs_write):
+    for fn in (lib.ngs_coverage_finalize, lib.ngs_runs_count, lib.ngs_runs_write,
+               lib.ngs_region_sums):
         fn.restype = ctypes.c_int
-    if not parent:
+    if hasattr(lib, "ngs_coverage_add_records"):
         lib.ngs_coverage_add_records.argtypes = [p, p, p, p, p, p, i, i, i, i, p, i, i, p, p]
         lib.ngs_coverage_add_records.restype = ctypes.c_int
     return lib
@@ -333,7 +387,7 @@ def _build_all(variants: dict, parent: Path | None) -> dict[str, ctypes.CDLL]:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-        loaded[name] = _bind(ctypes.CDLL(str(libs[name])), name == "parent")
+        loaded[name] = _bind(ctypes.CDLL(str(libs[name])))
     return loaded
 
 
@@ -402,7 +456,7 @@ def _finalize_calls(libs, dev):
             h = torch.zeros(bins, dtype=torch.int64, device=dev) if hist else None
             half = torch.zeros(1, dtype=torch.int64, device=dev) if hist else None
             cov = torch.zeros(span, dtype=torch.int32, device=dev) if hist is None else None
-            if name == "parent":  # int32 tile sums
+            if lib.first_designs:  # int32 tile sums
                 scratch = torch.empty(lib.ngs_coverage_tiles(span), dtype=torch.int32, device=dev)
             else:
                 scratch = torch.empty(lib.ngs_coverage_scratch(span), dtype=torch.int64,
@@ -445,7 +499,7 @@ def _runs_calls(libs, dev):
         calls = {}
         for name, lib in libs.items():
             out = torch.zeros(3, n_runs, dtype=torch.int32, device=dev)
-            scratch = torch.empty(2 * lib.ngs_runs_tiles(cov.shape[0]) + 2 if name == "parent"
+            scratch = torch.empty(2 * lib.ngs_runs_tiles(cov.shape[0]) + 2 if lib.first_designs
                                   else lib.ngs_runs_scratch(cov.shape[0]),
                                   dtype=torch.int64, device=dev)
 
@@ -458,6 +512,41 @@ def _runs_calls(libs, dev):
             calls[name] = (call, lambda out=out: torch.equal(out, want))
         total = int(off[-1])
         yield label + f": {n_runs} runs", 4 * total + 12 * n + 8 + 16 + 12 * n_runs, calls
+
+
+EXOME_UNMERGED = 3_574  # the exome's largest box as BedCoverage hands it to R1
+
+
+def _sums_calls(libs, dev):
+    """As ``_finalize_calls``, for R1 (the parent's too: its arguments are
+    the same)."""
+    chr1_cov = torch.cumsum(_chr1_diff(dev)[:-1], 0).to(torch.int32)
+    rng = np.random.default_rng(6)
+    es = np.sort(rng.integers(0, EXOME_BOX - 400, size=EXOME_UNMERGED))
+    exome = (es, es + rng.integers(99, 400, size=EXOME_UNMERGED))
+    dense_span, ds, de = selfcheck.r1_regions("dense panel", seed=7)
+    for label, cov, (rs, re) in (
+            (f"chr1's box as one region ({CHR1})", chr1_cov, (np.array([0]), np.array([CHR1 - 1]))),
+            (f"the exome's largest box ({EXOME_BOX}, {EXOME_UNMERGED} regions)",
+             torch.cumsum(_diff(EXOME_BOX, 24, 1, dev)[:-1], 0).to(torch.int32), exome),
+            (f"a dense panel ({dense_span}, {len(ds)} regions of 1-200 bp)",
+             torch.cumsum(_diff(dense_span, 4, 8, dev)[:-1], 0).to(torch.int32), (ds, de))):
+        case = selfcheck.region_sums_case(cov, rs, re)
+        s, off = (torch.from_numpy(a).to(dev) for a in dr.region_offsets(rs, re))
+        n = s.shape[0]
+        case.plain()
+        want = case.outputs()[1][0]
+        calls = {}
+        for name, lib in libs.items():
+            out = torch.zeros(n, dtype=torch.int64, device=dev)
+
+            def call(lib=lib, out=out, name=name):
+                _launched(name, lib.ngs_region_sums(_p(cov), _p(s), _p(off), n, _p(out),
+                                                    _stream()))
+            calls[name] = (call, lambda out=out, name=name: name in _ABLATIONS
+                           or torch.equal(out, want))
+        yield label, case.bytes, calls
+        del cov, calls
 
 
 # the exome BAM's median batch (chip_smoke.py, a chromosome's 8 Mb): its
@@ -498,8 +587,8 @@ def _exome_batch(seed: int = 4):
 def _records_calls(libs, dev):
     """As ``_finalize_calls``, for C1's record form: the batch with
     -min_baseq 20 and without; the coverages (prefix sums) are compared."""
-    if "parent" in libs:
-        raise ValueError("C1's record form has no parent to time")
+    if "parent" in libs and not hasattr(libs["parent"], "ngs_coverage_add_records"):
+        raise ValueError("the parent has no C1 record form to time")
     rec, blocks, span = _exome_batch()
     n = rec.pos.shape[0]
     for min_baseq in (20, 0):
@@ -524,7 +613,8 @@ def _records_calls(libs, dev):
                f"{EXOME_BLOCKS} blocks", case.bytes, calls)
 
 
-RUNNERS = {"finalize": _finalize_calls, "runs": _runs_calls, "records": _records_calls}
+RUNNERS = {"finalize": _finalize_calls, "sums": _sums_calls, "runs": _runs_calls,
+           "records": _records_calls}
 
 
 def main(argv: list[str] | None = None) -> int:

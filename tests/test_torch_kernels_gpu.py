@@ -1061,3 +1061,161 @@ def test_coverage_add_records_refuses_what_the_kernel_does_not_take():
     dr.coverage_add_records_into(rec, 50, 50, 0, 20, blocks, diff)  # no records: no launch
     assert dr.coverage_add_records_into.launches == before
     assert int(diff.abs().sum()) == 0
+
+
+# ------------------------------------------------------------ C1's read form
+
+def _roi_reads(n, seed, **kw):
+    """C1's read form's inputs on the card: (reads [4, k], regions [3, n],
+    span), the regions as ``DeviceCoverage`` holds them."""
+    from ngsbits_tpu_torch.ops import device_reduce as dr
+    (_, rs, re), (_, qs, qe, i0, i1) = selfcheck.roi_reads(n, seed=seed, **kw)
+    span = int((re - rs + 1).sum())
+    regions = dr.DeviceCoverage(span, "cuda", regions=np.stack([rs, re])).regions
+    return _t(np.stack([qs, qe, i0, i1]).astype(np.int32)), regions, span
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,seed,kw", [
+    (1, 0, {}), (31, 1, {}), (3000, 2, {}),
+    (45_000, 3, dict(n_chroms=24, n_regions=2500, width=8_000_000))])
+def test_coverage_add_reads_matches_plain_version(n, seed, kw):
+    """C1's read form: reads at region edges, over many regions, in none,
+    of no reference length, over the ROI's last region, on several
+    chromosomes; at the last shape a MappingQC batch over an exome panel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    case = selfcheck.coverage_add_reads_case(*_roi_reads(n, seed, **kw))
+    before = case.wrapper.launches
+    case.kernel()
+    case.plain()
+    torch.cuda.synchronize()
+    assert case.wrapper.launches == before + 1
+    assert selfcheck.max_abs_err(case) == 0
+
+
+@pytest.mark.gpu
+def test_coverage_add_reads_spreads_long_reads_and_clamps_ranges():
+    """One read over all 2,000 regions beside reads over one, so a warp's
+    pairs are dealt out over many steps; ranges wider than a read (empty
+    clips add nothing); ranges past ``[0, n]``, which the contract excludes
+    and the wrapper alone does not check, clamped as the plain version
+    clamps them: nothing is written outside the array."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ngsbits_tpu_torch.ops import device_reduce as dr
+    n = 2000
+    rs = 1 + 20 * np.arange(n)
+    re = rs + 9
+    span = 10 * n
+    regions = dr.DeviceCoverage(span, "cuda", regions=np.stack([rs, re])).regions
+    rng = np.random.default_rng(44)
+    k = 3000
+    r = rng.integers(0, n, size=k)
+    qs, qe = rs[r] + rng.integers(-5, 8, size=k), rs[r] + rng.integers(8, 15, size=k)
+    i0, i1 = np.maximum(r - 2, 0), np.minimum(r + 3, n)   # wider than the read
+    qs[::97], qe[::97], i0[::97], i1[::97] = 1, re[-1], 0, n  # over every region
+    qs[5], i0[5], i1[5] = 1, -7, n + 9                        # past the contract
+    reads = _t(np.stack([qs, qe, i0, i1]).astype(np.int32))
+    guard = torch.full((span + 1 + 64,), 7, dtype=torch.int32, device="cuda")
+    diff = guard[32:32 + span + 1]
+    diff.zero_()
+    want = torch.zeros(span + 1, dtype=torch.int32, device="cuda")
+    dr.coverage_add_reads_into(reads, regions, diff)
+    dr.coverage_add_reads_plain(reads, regions, want)
+    torch.cuda.synchronize()
+    assert torch.equal(diff, want)
+    assert int(guard[:32].ne(7).sum()) == 0 and int(guard[32 + span + 1:].ne(7).sum()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", [([10, 20], [60, 70], [0, -1], [1, 1]),
+                                 ([10, 20], [60, 70], [0, 2], [1, 4]),
+                                 ([10, 20], [60, 70], [0, 2], [1, 1]),
+                                 ([10, 20], [60, 17], [0, 0], [1, 1]),
+                                 ([10, 20], [60, 2**31], [0, 0], [1, 1])])
+def test_out_of_contract_reads_raise_on_the_card_as_on_the_cpu(bad):
+    """F7 stays closed for the read form: the same ValueError on both
+    routes, before any upload, and nothing added."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ngsbits_tpu_torch.ops import device_reduce as dr
+    regions = np.array([[1, 101, 151], [100, 150, 200]])
+    for dev in ("cuda", "cpu"):
+        dc = dr.DeviceCoverage(200, dev, regions=regions)
+        before = dr.coverage_add_reads_into.launches
+        with pytest.raises(ValueError, match="outside the contract"):
+            dc.add_reads(*(np.array(c) for c in bad))
+        assert dr.coverage_add_reads_into.launches == before
+        assert int(dc.diff.abs().sum()) == 0
+
+
+@pytest.mark.gpu
+def test_read_form_engine_on_card_matches_cpu():
+    """``DeviceCoverage.add_reads`` over several batches, then C2
+    (histogram and dense coverage), on the card against the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ngsbits_tpu_torch.ops import device_reduce as dr
+    (_, rs, re), (_, qs, qe, i0, i1) = selfcheck.roi_reads(20_000, seed=45)
+    span = int((re - rs + 1).sum())
+    got = {}
+    for dev in ("cuda", "cpu"):
+        dc = dr.DeviceCoverage(span, dev, regions=np.stack([rs, re]))
+        for b in range(0, len(qs), 3000):
+            dc.add_reads(qs[b:b + 3000], qe[b:b + 3000], i0[b:b + 3000], i1[b:b + 3000])
+        hist, half = dc.histogram(5, 599, 120, 3)
+        got[dev] = (hist, half, dc.finalize())
+    np.testing.assert_array_equal(got["cuda"][0], got["cpu"][0])
+    assert got["cuda"][1] == got["cpu"][1]
+    np.testing.assert_array_equal(got["cuda"][2], got["cpu"][2])
+
+
+@pytest.mark.gpu
+def test_coverage_add_reads_refuses_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ngsbits_tpu_torch.ops import device_reduce as dr
+    reads, regions, span = _roi_reads(100, 46)
+    diff = torch.zeros(span + 1, dtype=torch.int32, device="cuda")
+    before = dr.coverage_add_reads_into.launches
+    with pytest.raises(TypeError):
+        dr.coverage_add_reads_into(reads.to(torch.int64), regions, diff)
+    with pytest.raises(ValueError, match="shape"):
+        dr.coverage_add_reads_into(reads[:3], regions, diff)
+    with pytest.raises(ValueError, match="contiguous"):
+        dr.coverage_add_reads_into(reads.t().contiguous().t(), regions, diff)
+    with pytest.raises(ValueError, match="devices"):
+        dr.coverage_add_reads_into(reads, regions.cpu(), diff)
+    dr.coverage_add_reads_into(reads[:, :0], regions, diff)  # no reads: no launch
+    assert dr.coverage_add_reads_into.launches == before
+    assert int(diff.abs().sum()) == 0
+
+
+# ------------------------------------------------------------ R1's tiling
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", selfcheck.R1_KINDS)
+def test_region_sums_match_plain_version_where_the_tiling_differs(kind):
+    """R1 at the region sets its tiling treats differently
+    (``selfcheck.r1_regions``): thousands of short regions (tiles of a few
+    hundred positions), pieces straddling every tile edge, overlapping and
+    repeated regions, regions longer than a tile, regions of one position,
+    and a dense panel whose tiles of 8,192 hold many pieces each; launched
+    twice on one output (the launcher clears it) and from a CUDA graph."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    span, rs, re = selfcheck.r1_regions(kind, seed=47)
+    s, e = selfcheck.coverage_spans(span, max(span // 50, 4), seed=48, pile=700)
+    cov = _cov(selfcheck.coverage_diff(s, e, span, torch.device("cuda")))
+    case = selfcheck.region_sums_case(cov, rs, re)
+    before = case.wrapper.launches
+    case.kernel()
+    case.kernel()
+    case.plain()
+    torch.cuda.synchronize()
+    assert case.wrapper.launches == before + 2
+    assert selfcheck.max_abs_err(case) == 0
+    selfcheck.device_ms(case.kernel, calls=2, runs=1)
+    torch.cuda.synchronize()
+    assert selfcheck.max_abs_err(case) == 0
