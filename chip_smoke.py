@@ -36,7 +36,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
             ROI's last region, on several chromosomes; coverage at and above
             hist_max, cfDNA's and the adaptive histogram parameters, hot
             bins, all bundled SNPs); at the main path's inputs they are
-            checked and timed in the mappingqc phase.
+            checked and timed in the mappingqc phase. The contamination
+            pileup's B1 record form at its edges
+            (``selfcheck.PILEUP_EDGES``: records without SEQ, 0xFF
+            qualities, every CIGAR op, loci at an op's first and last base
+            and repeated, sorted and unsorted records, several chromosomes
+            in a batch and one without loci, a pile, long N ops; MAPQ 0 with
+            and without the MAPQ-0 counters, include_not_properly_paired,
+            min_mapq 0, 1 and 20, min_baseq 0, 13, 20 and 256:
+            ``selfcheck.PILEUP_PARAMS``).
             The coverage tools' C2 (dense mode alone), R1 and R2 at their
             edges (one-base regions, regions at both ends and over the whole
             span, overlapping and repeated (R1) or disjoint (R2), cutoffs of
@@ -82,19 +90,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
             or near target, duplicates, MAPQ 0, unmapped mates, clips and
             indels, heterozygous and homozygous SNPs. MappingQC -roi -read_qc
             with the contamination check on the card, counts reset before
-            and read after (C1's read form, C2, B1, unpack, K1 and tails all
-            launched, C1's span form not), the inputs it hands C1, C2 and B1
-            copied where it calls the coverage and bincount engines (host
-            copies of each batch's reads and indices, C2's difference array
-            on the card: in the run's time; one copy a launch); prints
-            reads/s and the seconds of each pass; C1's read form, C2 and B1
-            against their plain versions at each of the run's launches,
-            timed at the launch of median size (C1, B1) and at C2's, C1's
-            span form at the spans the host made of that launch's reads
-            before the read form (the library calls timed as the kernels
-            are: ``index_add_`` for C1 on those spans, ``torch.bincount``
-            for B1; C2's yardstick cumsum + bincount and X6's sort route
-            over the run's spans); runs the JAX
+            and read after (C1's read form, C2, B1's record form, unpack, K1
+            and tails all launched, C1's span form and B1's index form not),
+            the inputs it hands C1, C2 and B1's record form kept where it
+            calls the coverage and pileup engines (host copies of each
+            batch's reads, C2's difference array copied on the card, each
+            batch's uploaded records: in the run's time; one a launch);
+            prints reads/s and the seconds of each pass; C1's read form, C2
+            and B1's record form against their plain versions at each of the
+            run's launches, timed at the launch of median size (C1; B1's
+            record form by its bases and deletions at the loci) and at C2's,
+            C1's span form at the spans the host made of that launch's reads
+            before the read form, B1's index form at the counter indices the
+            host's join made of the median pileup launch's records (the
+            library calls timed as the kernels are: ``index_add_`` for C1 on
+            those spans, ``torch.bincount`` for B1; C2's yardstick cumsum +
+            bincount and X6's sort route over the run's spans); runs the JAX
             package's host route on the same files in a subprocess
             (scripts/jax_host_route.py, with -debug for its stage times) and
             requires identical reports; then the first 200,000 records on
@@ -197,6 +208,11 @@ KERNELS = {  # name: (source, the TPU/XLA function it replaces)
     "coverage_finalize": ("ngsbits_tpu_torch/csrc/coverage.cu",
                           "ngsbits_tpu/ops/device_reduce.py:128"),
     "bincount_add": ("ngsbits_tpu_torch/csrc/coverage.cu", "ngsbits_tpu/ops/device_reduce.py:135"),
+    # the same DeviceBincount, with the host's per-op expansion, join against
+    # the loci and base, deletion and MAPQ-0 counts before it
+    # (ngsbits_tpu/qc/pileup.py:126-251)
+    "pileup_add_records": ("ngsbits_tpu_torch/csrc/pileup.cu",
+                           "ngsbits_tpu/ops/device_reduce.py:135"),
     # not TPU kernels: the host's region sums (prefix sums) and threshold runs
     # (masks) of the coverage tools
     "region_sums": ("ngsbits_tpu_torch/csrc/coverage.cu", "ngsbits_tpu/qc/coverage.py:131"),
@@ -468,6 +484,14 @@ def coverage_edges(dev: torch.device):
         _check_equal(selfcheck.bincount_case(t(ix), 4 * MQ_ALL_SNPS), label)
         print(f"bincount_add     {label} (size={4 * MQ_ALL_SNPS}, n={len(ix)}): equal",
               flush=True)
+    phase("kernels: the contamination pileup's B1 record form at its edges (at the main "
+          "path's inputs after the mappingqc phase)")
+    for label in selfcheck.PILEUP_EDGES:
+        for params in selfcheck.PILEUP_PARAMS:
+            _check_equal(selfcheck.pileup_edge_case(label, params, dev), f"{label} {params}")
+        print(f"pileup_add_records {label}: records without SEQ, 0xFF qualities, every CIGAR "
+              f"op, loci at op edges and repeated; (min_mapq, min_baseq, track_mapq0, "
+              f"include_not_properly_paired) in {selfcheck.PILEUP_PARAMS}: equal", flush=True)
     phase("kernels: the coverage tools' C1 record form, C2 (dense mode), R1 and R2 at "
           "their edges (at the main path's inputs after the coverage phase)")
     rng = np.random.default_rng(27)
@@ -517,20 +541,23 @@ def coverage_edges(dev: torch.device):
 
 @contextlib.contextmanager
 def _capture_coverage_inputs():
-    """Copies, in launch order, of what MappingQC hands C1's read form, C2
-    and B1 while the block runs, taken where the engines
-    (``DeviceCoverage.add_reads`` and ``histogram``, ``DeviceBincount.add``)
+    """What MappingQC hands C1's read form, C2 and B1's record form while
+    the block runs, in launch order, taken where the engines
+    (``DeviceCoverage.add_reads`` and ``histogram``, ``DevicePileup.add``)
     are called; each call goes on to the engine, whose wrappers launch and
     count. Yields ``{"coverage_add_reads": [(reads, regions, span)],
     "coverage_finalize": [(diff, step, hist_max, bins, half_depth)],
-    "bincount_add": [(idx, size)]}``: host int32 arrays (``reads`` ``[4,
-    k]`` as they go up), the ROI's regions as the engine holds them on the
-    card, and C2's difference array as a copy on the card."""
+    "pileup_add_records": [(rec, loci, table, min_mapq, min_baseq,
+    track_mapq0)]}``: host int32 copies of the reads (``[4, k]`` as they go
+    up), the ROI's regions as the engine holds them on the card, C2's
+    difference array as a copy on the card, and each batch's records as
+    they went up (a fresh upload a batch, kept) with the engine's loci and
+    table on the card."""
     import numpy as np
-    from ngsbits_tpu_torch.ops.device_reduce import DeviceBincount, DeviceCoverage
-    got: dict = {"coverage_add_reads": [], "coverage_finalize": [], "bincount_add": []}
-    cov_add, cov_histogram, count_add = (DeviceCoverage.add_reads, DeviceCoverage.histogram,
-                                         DeviceBincount.add)
+    from ngsbits_tpu_torch.ops.device_reduce import DeviceCoverage, DevicePileup
+    got: dict = {"coverage_add_reads": [], "coverage_finalize": [], "pileup_add_records": []}
+    cov_add, cov_histogram, pileup_add = (DeviceCoverage.add_reads, DeviceCoverage.histogram,
+                                          DevicePileup.add)
 
     def coverage_add_reads(self, starts, ends, i0, i1):
         if len(starts):
@@ -542,18 +569,18 @@ def _capture_coverage_inputs():
         got["coverage_finalize"].append((self.diff.clone(), step, hist_max, bins, half_depth))
         return cov_histogram(self, step, hist_max, bins, half_depth)
 
-    def bincount_add(self, idx):
-        if len(idx):
-            got["bincount_add"].append((np.array(idx, np.int32), self.size))
-        count_add(self, idx)
+    def add_records(self, rec, min_mapq, min_baseq):
+        got["pileup_add_records"].append((rec, self.loci, self.table, min_mapq, min_baseq,
+                                          self.mapped is not None))
+        pileup_add(self, rec, min_mapq, min_baseq)
 
-    DeviceCoverage.add_reads, DeviceCoverage.histogram, DeviceBincount.add = (
-        coverage_add_reads, histogram, bincount_add)
+    DeviceCoverage.add_reads, DeviceCoverage.histogram, DevicePileup.add = (
+        coverage_add_reads, histogram, add_records)
     try:
         yield got
     finally:
-        DeviceCoverage.add_reads, DeviceCoverage.histogram, DeviceBincount.add = (
-            cov_add, cov_histogram, count_add)
+        DeviceCoverage.add_reads, DeviceCoverage.histogram, DevicePileup.add = (
+            cov_add, cov_histogram, pileup_add)
 
 
 def _median_launch(launches: list, size) -> tuple[int, tuple]:
@@ -580,28 +607,39 @@ def _flattened(reads: torch.Tensor, regions: torch.Tensor) -> tuple:
 
 
 def mappingqc_kernels(records: dict, got: dict, dev: torch.device):
-    """C1's read form, C2 and B1 against their plain versions at every
-    launch of the mappingqc phase's run, on the inputs that run handed them
-    (``_capture_coverage_inputs``); timed at the launch of median size (C1,
-    B1) and at C2's launch, with the library calls and C2's yardsticks. C1's
-    span form is timed at the spans the host made of the median launch's
-    reads before the read form (the same work, and ``index_add_``'s)."""
+    """C1's read form, C2 and B1's record form against their plain versions
+    at every launch of the mappingqc phase's run, on the inputs that run
+    handed them (``_capture_coverage_inputs``); timed at the launch of
+    median size (C1; B1's record form by its bases and deletions at the
+    loci) and at C2's launch, with the library calls and C2's yardsticks.
+    C1's span form is timed at the spans the host made of the median
+    launch's reads before the read form (the same work, and
+    ``index_add_``'s), B1's index form at the counter indices the host's
+    join made of the median pileup launch's records before the record form
+    (the same counts, and ``torch.bincount``'s)."""
+    from ngsbits_tpu_torch.ops import device_reduce as dr
     from ngsbits_tpu_torch.ops import selfcheck
     t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     adds = [(t(r), regions, span) for r, regions, span in got["coverage_add_reads"]]
-    idxs = [(t(i), size) for i, size in got["bincount_add"]]
+    piles = got["pileup_add_records"]
     fins = got["coverage_finalize"]
     n_reads = [r.shape[1] for r, _, _ in adds]
-    n_idx = [i.shape[0] for i, _ in idxs]
-    phase(f"kernels: MappingQC's C1 read form, C2 and B1 at the mappingqc run's inputs: C1 "
-          f"{len(adds)} launches of {min(n_reads)}-{max(n_reads)} reads ({sum(n_reads)} "
-          f"in all), C2 {len(fins)}, B1 {len(idxs)} of {min(n_idx)}-{max(n_idx)} indices "
-          f"({sum(n_idx)} in all)")
+    # each pileup launch's counts, one by one: (locus, base) of its bases and deletions
+    hits = [dr.pileup_hits(rec, loci, table, mq, bq)[1:3]
+            for rec, loci, table, mq, bq, _ in piles]
+    n_hits = [j.shape[0] for j, _ in hits]
+    phase(f"kernels: MappingQC's C1 read form, C2 and B1's record form at the mappingqc run's "
+          f"inputs: C1 {len(adds)} launches of {min(n_reads)}-{max(n_reads)} reads "
+          f"({sum(n_reads)} in all), C2 {len(fins)}, B1's record form {len(piles)} of "
+          f"{min(r[0].pos.shape[0] for r in piles)}-{max(r[0].pos.shape[0] for r in piles)} "
+          f"records with {min(n_hits)}-{max(n_hits)} bases and deletions at the loci "
+          f"({sum(n_hits)} in all)")
     for k, (r, regions, span) in enumerate(adds):
         _check_equal(selfcheck.coverage_add_reads_case(r, regions, span), f"launch {k}")
-    for k, (i, size) in enumerate(idxs):
-        _check_equal(selfcheck.bincount_case(i, size), f"launch {k}")
-    print(f"coverage_add_reads and bincount_add: equal at each of the run's launches", flush=True)
+    for k, args in enumerate(piles):
+        _check_equal(selfcheck.pileup_case(*args), f"launch {k}")
+    print(f"coverage_add_reads and pileup_add_records: equal at each of the run's launches",
+          flush=True)
 
     k, (r, regions, span) = _median_launch(adds, lambda a: a[0].shape[1])
     s, e = (t(a) for a in _flattened(r, regions))
@@ -646,10 +684,19 @@ def mappingqc_kernels(records: dict, got: dict, dev: torch.device):
           f"X6's sort route over the run's {all_s.shape[0]} spans (two sorts, two searches "
           f"of {span} positions): {got_c2['sort_route_ms']:.4f} ms", flush=True)
 
-    k, (i, size) = _median_launch(idxs, lambda a: a[0].shape[0])
+    k, _ = _median_launch(list(range(len(piles))), lambda a: n_hits[a])
+    rec, loci, table, mq, bq, track = piles[k]
+    n_kept = int((rec.keep >= 0).sum())
+    _record(records, selfcheck.pileup_case(rec, loci, table, mq, bq, track),
+            f"launch {k} of {len(piles)} (median): {rec.pos.shape[0]} records ({n_kept} kept), "
+            f"{n_hits[k]} bases and deletions at {loci.shape[0]} loci, min_mapq {mq}, "
+            f"min_baseq {bq}", True, cold=True)
+    j, base = hits[k]
+    i = (j * 4 + base)[base < dr.DELETION].to(torch.int32)
+    size = 4 * loci.shape[0]
     _record(records, selfcheck.bincount_case(i, size),
-            f"launch {k} of {len(idxs)} (median): {i.shape[0]} indices into {size} "
-            f"counters", True, cold=True,
+            f"the host's indices of pileup launch {k} of {len(piles)} (median): {i.shape[0]} "
+            f"indices into {size} counters", True, cold=True,
             library=lambda: torch.bincount(i, minlength=size), library_graph=False)
 
 
@@ -868,13 +915,16 @@ def mappingqc(records: dict):
         _reset()
         tool, seconds = _port(_mq_args(card, bam, bed, fa))
         launches = _launches()
-    path = ("coverage_add_reads", "coverage_finalize", "bincount_add",
+    path = ("coverage_add_reads", "coverage_finalize", "pileup_add_records",
             "readqc_unpack", "readqc_batch", "readqc_tails")
     for name in path:
         if launches[name] == 0:
             raise AssertionError(f"{name} was not launched by MappingQC: {launches}")
     if launches["coverage_add"]:
         raise AssertionError(f"MappingQC uploaded spans to C1's span form: {launches}")
+    if launches["bincount_add"]:
+        raise AssertionError(f"MappingQC's contamination check uploaded counter indices to "
+                             f"B1's index form: {launches}")
     for name in path[:3]:
         if len(got[name]) != launches[name]:
             raise AssertionError(f"{name}: {len(got[name])} inputs copied, "
@@ -892,16 +942,16 @@ def mappingqc(records: dict):
     print(f"MappingQC on {torch.cuda.get_device_name(0)}: {seconds:.3f} s, "
           f"{reads / seconds:.0f} reads/s (both mates); seconds by stage: {split} "
           f"(scan: the main QC's pass over the BAM with C1's read form; finalize: C2 and its "
-          f"fetch; the contamination check's pileup runs B1); launches {launches}",
-          flush=True)
+          f"fetch; the contamination check's pileup runs B1's record form, one launch a "
+          f"batch); launches {launches}", flush=True)
 
     depth = re.search(r'name="target region read depth"[^>]*value="([^"]+)"', report)
     print(f"target region read depth {depth.group(1) if depth else 'missing'}", flush=True)
     mappingqc_kernels(records, got, torch.device("cuda"))
     del got
-    for name in path:
+    for name in path + ("bincount_add",):
         records[name].setdefault("launches_by_tool", {})["MappingQC"] = launches[name]
-    for name in path[:3]:
+    for name in path[:3] + ("bincount_add",):
         records[name]["launches"] = launches[name]
 
     # -debug prints each stage's time to stderr and changes no report

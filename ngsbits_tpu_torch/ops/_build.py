@@ -131,6 +131,8 @@ def library() -> ctypes.CDLL:
             lib.ngs_runs_scratch.argtypes = [ll]
             lib.ngs_runs_count.argtypes = [p, ll, p, p, i, ll, i, p, p]
             lib.ngs_runs_write.argtypes = [p, ll, p, p, i, ll, i, p, i, p, p]
+            lib.ngs_pileup_add_records.argtypes = [p, p, p, p, p, p, p, p, i, p, i, p, i, i,
+                                                   i, p, p, p, p, p]
             for fn in (lib.ngs_readqc_batch, lib.ngs_readqc_unpack,
                        lib.ngs_readqc_tails, lib.ngs_insert_scan,
                        lib.ngs_adapter_evidence, lib.ngs_adapter_scan,
@@ -138,7 +140,8 @@ def library() -> ctypes.CDLL:
                        lib.ngs_coverage_add_reads,
                        lib.ngs_coverage_add_records,
                        lib.ngs_coverage_finalize, lib.ngs_bincount_add,
-                       lib.ngs_region_sums, lib.ngs_runs_count, lib.ngs_runs_write):
+                       lib.ngs_region_sums, lib.ngs_runs_count, lib.ngs_runs_write,
+                       lib.ngs_pileup_add_records):
                 fn.restype = ctypes.c_int
             lib.ngs_coverage_scratch.restype = ll
             lib.ngs_runs_scratch.restype = ll

@@ -31,7 +31,13 @@ exact in any order:
 - R1 ``region_sums_into``: the coverage summed over each region (int64);
 - R2 ``threshold_runs``: the runs of positions in each region whose
   coverage is below a cutoff (or at or above it);
-- B1 ``bincount_add_into``: ``counts[idx] += 1`` into int32 counters.
+- B1 ``bincount_add_into``: ``counts[idx] += 1`` into int32 counters (no
+  main path launches it since B1's record form);
+- B1's record form ``pileup_add_records_into`` (``csrc/pileup.cu``): a BAM
+  batch's records (``Records`` with bases, qualities and MAPQ) walked on the
+  card to a set of SNP loci (``DevicePileup``), counting each locus' bases,
+  deletions and, when asked, the reads and MAPQ-0 reads over it, for the
+  contamination pileup.
 
 R1 and R2 take regions as int32 ``starts`` and the int64 exclusive prefix of
 their lengths (``region_offsets``): region ``r`` is positions
@@ -44,7 +50,8 @@ tensors on the CPU take the plain version (``index_add_`` and ``cumsum``
 for C1 and C2, the pairs of reads and regions and ``index_add_`` for C1's
 read form, the per-base expansion and ``index_add_`` for C1's record form,
 ``cumsum`` and differences for R1, masks and ``nonzero`` for R2,
-``torch.bincount`` for B1), tensors on a CUDA device launch the kernel
+``torch.bincount`` for B1, the per-op expansion and ``searchsorted`` join
+against the loci for B1's record form), tensors on a CUDA device launch the kernel
 on the current stream after checking device, dtype, shape and contiguity,
 or raise. Each counts its launches in ``launches``. The engines take the
 device from ``utils/backend.py`` and use no size threshold.
@@ -177,18 +184,23 @@ _ALIGN = 16  # bytes: where each column starts in the upload
 
 
 class Records(NamedTuple):
-    """One BAM batch's alignment columns on a device, as C1's record form
-    takes them: int32 ``pos [N]`` (0-based leftmost), int32 ``keep [N]``
-    (a record's key: its ``ref_id`` where the host's filter keeps it, else
-    -1), int64 ``cigar_off [N + 1]`` into the int32 ``cigar`` words (BAM's
-    ``len << 4 | op``), and for ``-min_baseq`` int64 ``qual_off [N + 1]``
-    into the uint8 ``qual`` bytes (None without)."""
+    """One BAM batch's alignment columns on a device, as C1's and B1's
+    record forms take them: int32 ``pos [N]`` (0-based leftmost), int32
+    ``keep [N]`` (a record's key: its ``ref_id`` where the host's filter
+    keeps it, else -1), int64 ``cigar_off [N + 1]`` into the int32
+    ``cigar`` words (BAM's ``len << 4 | op``), for ``-min_baseq`` and the
+    pileup int64 ``qual_off [N + 1]`` (the batch's ``seq_off``) into the
+    uint8 ``qual`` bytes, and for the pileup the uint8 4-bit base codes
+    ``seq`` at the same offsets and the uint8 ``mapq [N]`` (None
+    without)."""
     pos: torch.Tensor
     keep: torch.Tensor
     cigar_off: torch.Tensor
     cigar: torch.Tensor
     qual_off: torch.Tensor | None = None
     qual: torch.Tensor | None = None
+    seq: torch.Tensor | None = None
+    mapq: torch.Tensor | None = None
 
 
 def _check_offsets(name: str, off: np.ndarray, n: int, size: int):
@@ -199,31 +211,42 @@ def _check_offsets(name: str, off: np.ndarray, n: int, size: int):
 
 def upload_records(pos: np.ndarray, keep: np.ndarray, cigar_off: np.ndarray,
                    cigar: np.ndarray, qual_off: np.ndarray | None = None,
-                   qual: np.ndarray | None = None,
+                   qual: np.ndarray | None = None, seq: np.ndarray | None = None,
+                   mapq: np.ndarray | None = None,
                    device: torch.device | None = None) -> Records:
     """A batch's columns (``Records``' types; ``cigar`` as BAM's uint32
     words) on ``device`` in one copy: one host buffer with each column at a
     16-byte aligned offset, and views of its copy. The offsets are checked
-    on the host first, so the kernel reads only inside its columns."""
+    on the host first, so the kernel reads only inside its columns. ``seq``
+    shares ``qual_off`` with ``qual`` and needs it."""
     n = len(pos)
     _check_offsets("cigar_off", np.asarray(cigar_off), n, len(cigar))
-    cols = [np.asarray(pos, dtype=np.int32), np.asarray(keep, dtype=np.int32),
-            np.asarray(cigar_off, dtype=np.int64),
-            np.asarray(cigar, dtype=np.uint32).view(np.int32)]
-    if len(cols[1]) != n:
-        raise ValueError(f"keep: {len(cols[1])} keys for {n} records")
+    cols = dict(pos=np.asarray(pos, dtype=np.int32), keep=np.asarray(keep, dtype=np.int32),
+                cigar_off=np.asarray(cigar_off, dtype=np.int64),
+                cigar=np.asarray(cigar, dtype=np.uint32).view(np.int32))
+    if len(cols["keep"]) != n:
+        raise ValueError(f"keep: {len(cols['keep'])} keys for {n} records")
     if qual is not None:
         _check_offsets("qual_off", np.asarray(qual_off), n, len(qual))
-        cols += [np.asarray(qual_off, dtype=np.int64), np.asarray(qual, dtype=np.uint8)]
-    at = np.cumsum([0] + [-(-c.nbytes // _ALIGN) * _ALIGN for c in cols])
+        cols.update(qual_off=np.asarray(qual_off, dtype=np.int64),
+                    qual=np.asarray(qual, dtype=np.uint8))
+    if seq is not None:
+        if qual is None or len(seq) != len(qual):
+            raise ValueError(f"seq: {len(seq)} bases need as many quality bytes at the "
+                             f"same offsets")
+        cols["seq"] = np.asarray(seq, dtype=np.uint8)
+    if mapq is not None:
+        if len(mapq) != n:
+            raise ValueError(f"mapq: {len(mapq)} values for {n} records")
+        cols["mapq"] = np.asarray(mapq, dtype=np.uint8)
+    at = np.cumsum([0] + [-(-c.nbytes // _ALIGN) * _ALIGN for c in cols.values()])
     buf = np.empty(int(at[-1]), dtype=np.uint8)
-    for c, a in zip(cols, at):
+    for c, a in zip(cols.values(), at):
         buf[a:a + c.nbytes] = c.view(np.uint8)
     dev = default_device() if device is None else torch.device(device)
     got = torch.from_numpy(buf).to(dev)
-    views = [got[a:a + c.nbytes].view(torch.from_numpy(c[:0]).dtype)
-             for c, a in zip(cols, at)]
-    return Records(*views)
+    return Records(**{name: got[a:a + c.nbytes].view(torch.from_numpy(c[:0]).dtype)
+                      for (name, c), a in zip(cols.items(), at)})
 
 
 def _table(values: tuple, op: torch.Tensor) -> torch.Tensor:
@@ -250,18 +273,25 @@ def _flat_index(blocks: torch.Tensor, span: int, x: torch.Tensor) -> torch.Tenso
     return torch.where(j < n, inside, span)
 
 
-def coverage_add_records_plain(rec: Records, r0, r1, ref, min_baseq, blocks, diff):
-    dev = diff.device
-    span = diff.shape[0] - 1
-    r = torch.arange(r0, r1, device=dev)
-    r = r[rec.keep[r0:r1] == ref]
+def _expand_cigars(rec: Records, r: torch.Tensor):
+    """The CIGAR ops of records ``r``: (the position in ``r`` of each op's
+    record, each record's first op, op codes, lengths), int64."""
+    dev = r.device
     c0 = rec.cigar_off[r]
     n_ops = rec.cigar_off[r + 1] - c0
     rec_of = torch.repeat_interleave(torch.arange(r.shape[0], device=dev), n_ops)
     first = torch.cumsum(n_ops, 0) - n_ops
     word = rec.cigar[c0[rec_of] + torch.arange(rec_of.shape[0], device=dev)
                      - first[rec_of]].to(torch.int64) & 0xFFFFFFFF
-    op, length = word & 0xF, word >> 4
+    return rec_of, first, word & 0xF, word >> 4
+
+
+def coverage_add_records_plain(rec: Records, r0, r1, ref, min_baseq, blocks, diff):
+    dev = diff.device
+    span = diff.shape[0] - 1
+    r = torch.arange(r0, r1, device=dev)
+    r = r[rec.keep[r0:r1] == ref]
+    rec_of, first, op, length = _expand_cigars(rec, r)
     ref_len = length * _table(_CIGAR_REF, op)
     pos = rec.pos[r].to(torch.int64)
     if min_baseq <= 0:  # a record's reference span
@@ -610,6 +640,181 @@ bincount_add_into.launches = 0
 
 
 # --------------------------------------------------------------------------
+# B1's record form: a batch's alignment records walked to the SNP loci
+# --------------------------------------------------------------------------
+
+# a base's byte (4-bit codes A=1, C=2, G=4, T=8) to the counters' 0-3; others -1
+_BASE_INDEX = (-1, 0, 1, -1, 2, -1, -1, -1, 3) + (-1,) * 247
+DELETION = 4  # ``pileup_hits``' base of a deletion
+
+
+def _locus_keys(loci: torch.Tensor) -> torch.Tensor:
+    """int64 keys of the loci that sort as they do and keep each
+    chromosome's loci apart: the number of the non-decreasing run of
+    positions a locus lies in, then its position (a chromosome's loci lie in
+    one run)."""
+    p = loci.to(torch.int64)
+    run = torch.zeros_like(p)
+    run[1:] = torch.cumsum((p[1:] < p[:-1]).to(torch.int64), 0)
+    return (run << 33) + p + (1 << 31)
+
+
+def _search(keys: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, x: torch.Tensor,
+            right: bool) -> torch.Tensor:
+    """For each (range ``[lo, hi)`` of the loci, 1-based position ``x``) the
+    first locus of the range after ``x`` (``right``) or at or after it,
+    clamped into ``[lo, hi]``."""
+    run = keys[lo.clamp(max=keys.shape[0] - 1)] >> 33
+    q = (run << 33) + x.clamp(-(1 << 31), (1 << 32) - 1) + (1 << 31)
+    return torch.searchsorted(keys, q, right=right).clamp(min=lo).minimum(hi)
+
+
+def _pairs(a: torch.Tensor, b: torch.Tensor):
+    """Every (i, j) with ``a[i] <= j < b[i]``, in order of i then j."""
+    count = (b - a).clamp(min=0)
+    i = torch.repeat_interleave(torch.arange(a.shape[0], device=a.device), count)
+    j = a[i] + torch.arange(i.shape[0], device=a.device) - (torch.cumsum(count, 0) - count)[i]
+    return i, j
+
+
+def _pileup_records(rec: Records, loci: torch.Tensor, table: torch.Tensor):
+    """The records with a key and loci on their chromosome: (records, the
+    loci's keys, each record's range ``[lo, hi)`` of its chromosome's loci,
+    the first locus at or after its start and the end of those up to its
+    end, and its ops: the position in the records of each op's record, its
+    code, length, 1-based reference start and offset in the query)."""
+    dev = loci.device
+    n_refs = table.shape[1]
+    key = rec.keep.to(torch.int64)
+    r = torch.nonzero((key >= 0) & (key < n_refs)).flatten()
+    lo, hi = table[0][key[r]].to(torch.int64), table[1][key[r]].to(torch.int64)
+    some = lo < hi
+    r, lo, hi = r[some], lo[some], hi[some]
+    keys = _locus_keys(loci) if loci.shape[0] else torch.zeros(1, dtype=torch.int64, device=dev)
+    rec_of, first_op, op, length = _expand_cigars(rec, r)
+    ref_len = length * _table(_CIGAR_REF, op)
+    start = rec.pos[r].to(torch.int64) + 1
+    ref_at = start[rec_of] + _exclusive_in_segments(ref_len, first_op, rec_of)
+    q_at = _exclusive_in_segments(length * _table(_CIGAR_QUERY, op), first_op, rec_of)
+    end = start - 1 + torch.zeros_like(start).index_add_(0, rec_of, ref_len)
+    a = _search(keys, lo, hi, start, right=False)
+    b = _search(keys, lo, hi, end, right=True)
+    return r, keys, lo, hi, a, b, (rec_of, op, length, ref_at, q_at)
+
+
+def pileup_hits(rec: Records, loci: torch.Tensor, table: torch.Tensor, min_mapq: int,
+                min_baseq: int):
+    """The counts of B1's record form one by one: (record, locus, base,
+    quality), int64, in order of record, op and locus: each base of an M, =
+    or X op at a locus whose code is A, C, G or T (``base`` 0-3) and whose
+    quality byte is at least ``min_baseq``, and each D op over a locus
+    (``base`` ``DELETION``, quality -1), of the records with a key and a
+    MAPQ of at least ``min_mapq``. A locus past its record's SEQ has no
+    base. The pileup's fragment route (``count_fragments``) takes its bases
+    from here, on the host."""
+    r, keys, lo, hi, a, b, (rec_of, op, length, ref_at, q_at) = _pileup_records(rec, loci, table)
+    passes = rec.mapq[r].to(torch.int64) >= min(max(int(min_mapq), 0), 256)
+    is_match = _table(_CIGAR_MATCH, op) == 1
+    o = torch.nonzero(((passes & (b > a))[rec_of]) & (is_match | (op == 2))).flatten()
+    ro = rec_of[o]
+    k, j = _pairs(_search(keys, lo[ro], hi[ro], ref_at[o], right=False),
+                  _search(keys, lo[ro], hi[ro], ref_at[o] + length[o] - 1, right=True))
+    o, ro = o[k], ro[k]   # each (op, locus) pair's op and record
+    rec_k = r[ro]
+    qi = q_at[o] + loci[j].to(torch.int64) - ref_at[o]
+    s0 = rec.qual_off[rec_k]
+    has = is_match[o] & (qi < rec.qual_off[rec_k + 1] - s0)  # past the SEQ: no base
+    base = torch.full_like(qi, -1)
+    qual = torch.full_like(qi, -1)
+    at = (s0 + qi)[has]
+    base[has] = _table(_BASE_INDEX, rec.seq[at].to(torch.int64))
+    qual[has] = rec.qual[at].to(torch.int64)
+    counted = has & (base >= 0) & (qual >= min(max(int(min_baseq), 0), 256))
+    base[~is_match[o]] = DELETION
+    keep = counted | ~is_match[o]
+    return rec_k[keep], j[keep], base[keep], qual[keep]
+
+
+def pileup_add_records_plain(rec, loci, table, min_mapq, min_baseq, counts, dels,
+                             mapped=None, mapq0=None):
+    n = loci.shape[0]
+    if n == 0:
+        return
+    if mapped is not None:
+        r, _, _, _, a, b, _ = _pileup_records(rec, loci, table)
+        for out, mask in ((mapped, b > a), (mapq0, (b > a) & (rec.mapq[r] == 0))):
+            ev = torch.zeros(n + 1, dtype=torch.int64, device=loci.device)
+            ev.index_add_(0, a[mask], torch.ones_like(a[mask]))
+            ev.index_add_(0, b[mask], -torch.ones_like(b[mask]))
+            out += torch.cumsum(ev[:n], 0).to(out.dtype)
+    _, j, base, _ = pileup_hits(rec, loci, table, min_mapq, min_baseq)
+    is_base = base < DELETION
+    ones = torch.ones_like(j, dtype=counts.dtype)
+    counts.view(-1).index_add_(0, (j * 4 + base)[is_base], ones[is_base])
+    dels.index_add_(0, j[~is_base], ones[~is_base])
+
+
+def pileup_add_records_into(rec: Records, loci: torch.Tensor, table: torch.Tensor,
+                            min_mapq: int, min_baseq: int, counts: torch.Tensor,
+                            dels: torch.Tensor, mapped: torch.Tensor | None = None,
+                            mapq0: torch.Tensor | None = None) -> None:
+    """B1's record form, the counterpart of the contamination pileup's host
+    join (``ngsbits_tpu/qc/pileup.py:126-251``: per-op expansion, the
+    searchsorted join against the loci, base and quality gather, deletion
+    and MAPQ-0 counts) and of ``DeviceBincount`` after it: for each record
+    of the batch ``rec`` (positions, keys, MAPQ, CIGARs, bases and
+    qualities) whose key ``k`` (its ``ref_id``, or -1 where the host's
+    filter drops it) has loci, those in ``loci[table[0, k]:table[1, k]]``
+    (int32 1-based positions, sorted within each such range; ``table`` int32
+    ``[2, n_refs]``) that lie in its reference span ``[pos + 1, pos + the
+    lengths of its M, D, N, = and X ops]``: ``mapped`` and ``mapq0`` (when
+    given, int32 ``[n]``) count it at each of them, ``mapq0`` only at MAPQ 0;
+    if its MAPQ is at least ``min_mapq``, ``counts`` (int32 ``[n, 4]``)
+    counts the A, C, G or T base at each locus under an M, = or X op whose
+    quality byte is at least ``min_baseq`` (0xFF counts; a locus past the
+    record's SEQ has no base) and ``dels`` (int32 ``[n]``) each locus under a
+    D op. N ops and clips count nothing; duplicate loci each count."""
+    if (mapped is None) != (mapq0 is None):
+        raise ValueError("mapped and mapq0 are given together or not at all")
+    if rec.qual is None or rec.seq is None or rec.mapq is None:
+        raise ValueError("the pileup needs the records' bases, qualities and MAPQ")
+    tracked = () if mapped is None else (mapped, mapq0)
+    tensors = (rec.pos, rec.keep, rec.mapq, rec.cigar_off, rec.cigar, rec.qual_off, rec.seq,
+               rec.qual, loci, table, counts, dels) + tracked
+    if _route(*tensors) == "cpu":
+        return pileup_add_records_plain(rec, loci, table, min_mapq, min_baseq, counts, dels,
+                                        mapped, mapq0)
+    n_rec, n = rec.pos.shape[0], loci.shape[0]
+    n_refs = table.shape[1] if table.dim() == 2 else -1
+    _check("pos", rec.pos, torch.int32, (n_rec,))
+    _check("keep", rec.keep, torch.int32, (n_rec,))
+    _check("mapq", rec.mapq, torch.uint8, (n_rec,))
+    _check("cigar_off", rec.cigar_off, torch.int64, (n_rec + 1,))
+    _check("cigar", rec.cigar, torch.int32, (rec.cigar.shape[0],))
+    _check("qual_off", rec.qual_off, torch.int64, (n_rec + 1,))
+    _check("qual", rec.qual, torch.uint8, (rec.qual.shape[0],))
+    _check("seq", rec.seq, torch.uint8, (rec.qual.shape[0],))
+    _check("loci", loci, torch.int32, (n,))
+    _check("table", table, torch.int32, (2, n_refs))
+    _check("counts", counts, torch.int32, (n, 4))
+    _check("dels", dels, torch.int32, (n,))
+    for name, t in zip(("mapped", "mapq0"), tracked):
+        _check(name, t, torch.int32, (n,))
+    if n_rec == 0 or n == 0 or n_refs == 0:
+        return
+    rc = _lib().ngs_pileup_add_records(
+        _ptr(rec.pos), _ptr(rec.keep), _ptr(rec.mapq), _ptr(rec.cigar_off), _ptr(rec.cigar),
+        _ptr(rec.qual_off), _ptr(rec.seq), _ptr(rec.qual), n_rec, _ptr(loci), n, _ptr(table),
+        n_refs, min(max(int(min_mapq), 0), 256), min(max(int(min_baseq), 0), 256),
+        _ptr(counts), _ptr(dels), _optional_ptr(mapped), _optional_ptr(mapq0), _stream(counts))
+    _launched("pileup_add_records", rc)
+    pileup_add_records_into.launches += 1
+
+
+pileup_add_records_into.launches = 0
+
+
+# --------------------------------------------------------------------------
 # engines with the JAX package's API
 # --------------------------------------------------------------------------
 
@@ -788,9 +993,10 @@ class DeviceCoverage:
 
 
 class DeviceBincount:
-    """Counter array engine (pileup base counts): int32 counters on the
-    device, each batch of indices counted at once (B1), fetched once at the
-    end as int64."""
+    """Counter array engine (B1's index form, the JAX package's
+    ``DeviceBincount``): int32 counters on the device, each batch of indices
+    counted at once (B1), fetched once at the end as int64. The pileup
+    counts through ``DevicePileup``."""
 
     def __init__(self, size: int, device: torch.device | None = None):
         self.size = size
@@ -805,3 +1011,78 @@ class DeviceBincount:
         out = self.counts.to(torch.int64).cpu().numpy()
         self.counts = None
         return out
+
+
+class DevicePileup:
+    """Pileup counters at a set of loci on the device (B1's record form):
+    the loci, sorted by chromosome and position, and a table of each
+    reference's range of them, uploaded once; int32 base, deletion and
+    (with ``track_mapq0``) read and MAPQ-0 counters in one buffer on the
+    device; ``reaching`` picks a batch's records that reach a locus (on the
+    host), ``add`` counts a batch's records at once, ``finalize`` fetches
+    the counters once as int64, in the loci's own order."""
+
+    def __init__(self, chr_nums: np.ndarray, positions: np.ndarray, ref_nums: np.ndarray,
+                 track_mapq0: bool = False, device: torch.device | None = None):
+        """``chr_nums``, ``positions``: each locus' chromosome number and
+        1-based position (any order, duplicates allowed); ``ref_nums``: the
+        chromosome number of each of the BAM's references (its ``ref_id``s)."""
+        pos = np.asarray(positions, dtype=np.int64)
+        chrs = np.asarray(chr_nums, dtype=np.int64)
+        n = self.n = len(pos)
+        if n and (pos.min() < -INT32_LIMIT or pos.max() > INT32_LIMIT):
+            raise ValueError("loci positions must lie within int32")
+        if 7 * n > INT32_LIMIT:
+            raise ValueError(f"{n} loci: the counters need fewer than 2^31 / 7")
+        self.device = default_device() if device is None else torch.device(device)
+        self.order = np.lexsort((pos, chrs))
+        s_chr = chrs[self.order]
+        refs = np.asarray(ref_nums, dtype=np.int64)
+        table = np.stack([np.searchsorted(s_chr, refs, "left"),
+                          np.searchsorted(s_chr, refs, "right")]).astype(np.int32)
+        self._host_loci, self._host_table = pos[self.order], table.reshape(2, len(refs))
+        self.loci = torch.from_numpy(pos[self.order].astype(np.int32)).to(self.device)
+        self.table = torch.from_numpy(self._host_table).to(self.device)
+        self.out = torch.zeros((7 if track_mapq0 else 5) * n, dtype=torch.int32,
+                               device=self.device)
+        self.counts = self.out[:4 * n].view(n, 4)
+        self.dels = self.out[4 * n:5 * n]
+        self.mapped = self.out[5 * n:6 * n] if track_mapq0 else None
+        self.mapq0 = self.out[6 * n:] if track_mapq0 else None
+
+    def reaching(self, pos: np.ndarray, ends: np.ndarray, keys: np.ndarray) -> np.ndarray:
+        """The host's pre-filter: which records' reference spans (0-based
+        ``pos`` to the 1-based inclusive ``ends``) hold a locus of their
+        key's chromosome, by two searches a chromosome in the batch. Only
+        these need to go up: the others count nowhere."""
+        loci, table = self._host_loci, self._host_table
+        reach = np.zeros(len(keys), dtype=bool)
+        kept = np.flatnonzero((keys >= 0) & (keys < table.shape[1]))
+        for ref in np.unique(keys[kept]):
+            lo, hi = table[:, ref]
+            if lo < hi:
+                rr = kept[keys[kept] == ref]
+                a = np.searchsorted(loci[lo:hi], pos[rr].astype(np.int64) + 1, "left")
+                b = np.searchsorted(loci[lo:hi], ends[rr], "right")
+                reach[rr[b > a]] = True
+        return reach
+
+    def add(self, rec: Records, min_mapq: int, min_baseq: int):
+        """Counts one batch's records (``pileup_add_records_into``)."""
+        pileup_add_records_into(rec, self.loci, self.table, min_mapq, min_baseq, self.counts,
+                                self.dels, self.mapped, self.mapq0)
+
+    def finalize(self) -> dict[str, np.ndarray]:
+        """int64 ``counts [n, 4]``, ``dels``, and with ``track_mapq0``
+        ``mapped`` and ``mapq0`` ``[n]``, in the loci's order: one fetch."""
+        got = self.out.to(torch.int64).cpu().numpy()
+        n, order = self.n, self.order
+        fields = {"counts": got[:4 * n].reshape(n, 4), "dels": got[4 * n:5 * n]}
+        if self.mapped is not None:
+            fields.update(mapped=got[5 * n:6 * n], mapq0=got[6 * n:])
+        result = {}
+        for name, sorted_values in fields.items():
+            result[name] = np.empty_like(sorted_values)
+            result[name][order] = sorted_values
+        self.out = self.counts = self.dels = self.mapped = self.mapq0 = None
+        return result

@@ -12,7 +12,7 @@ The three ReadQC kernels add into caller-given int64 accumulators, so a
 stream of batches updates one set of tensors in place. K2 writes its outputs
 in full, as int16. The adapter scans and the decisions of SeqPurge live in
 ``ops/seqpurge.py``, the coverage and pileup kernels in ``ops/device_reduce.py``;
-both share the checks here. ``ngsbits_tpu_torch.ops.KERNELS`` lists all fourteen
+both share the checks here. ``ngsbits_tpu_torch.ops.KERNELS`` lists all fifteen
 wrappers.
 """
 

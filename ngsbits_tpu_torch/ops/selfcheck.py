@@ -19,7 +19,9 @@ MappingQC's (C1, C2, B1) on ``coverage_spans`` and ``pileup_indices``, and
 (R1) and ``threshold_runs_case`` (R2) the coverage tools', on
 ``coverage_regions`` and (R1) ``r1_regions``; ``coverage_add_records_case``
 their C1 record form, on ``alignment_records`` (a BAM batch's columns with
-every CIGAR op).
+every CIGAR op, bases and MAPQ); ``pileup_case`` the contamination
+pileup's B1 record form, on those records at ``pileup_loci``
+(``pileup_edge_case``: at ``PILEUP_EDGES`` with ``PILEUP_PARAMS``).
 ``max_abs_err`` compares the two after both ran once. Each case also counts
 the work the function must do on its inputs: ``bytes`` (each input read once,
 each output written once; for K1 only the bytes inside the reads) and ``ops``
@@ -823,7 +825,9 @@ def alignment_records(n: int, seed: int = 0, start: int = 0, width: int = 20_000
     qualities 0-41, a share ``no_qual`` of the records all 0xFF ("no
     qualities") and a share ``no_seq`` with no SEQ (``l_seq`` 0 though
     their CIGAR has M ops); some duplicates, secondary, supplementary and
-    unmapped records and MAPQ 0, which the tools' filter drops."""
+    unmapped records and MAPQ 0, which the tools' filter drops; ``seq``, the
+    4-bit base codes at the qualities' offsets (``seq_off``): mostly A, C,
+    G and T, some N and a few other codes."""
     rng = np.random.default_rng(seed)
     n_ops = rng.integers(1, max_ops + 1, size=n)
     n_ops[rng.random(n) < 0.02] = 0
@@ -850,9 +854,11 @@ def alignment_records(n: int, seed: int = 0, start: int = 0, width: int = 20_000
     flag = rng.choice(np.array([0, 0x400, 0x100, 0x800, 0x4, 0x2, 0x1, 0x10], np.uint16),
                       size=n, p=[0.5, 0.05, 0.03, 0.02, 0.02, 0.2, 0.1, 0.08])
     mapq = np.where(rng.random(n) < 0.05, 0, rng.integers(1, 61, size=n)).astype(np.uint8)
+    seq = rng.choice(np.array([1, 2, 4, 8, 15, 0, 3], np.uint8), size=len(qual),
+                     p=[0.23, 0.23, 0.23, 0.23, 0.04, 0.02, 0.02])
     return dict(ref_id=ref_id, pos=pos, flag=flag, mapq=mapq, l_seq=l_seq,
                 n_cigar=n_ops.astype(np.int32), cigar=cigar, cigar_off=cigar_off,
-                qual=qual, seq_off=seq_off)
+                qual=qual, seq_off=seq_off, seq=seq)
 
 
 def records_keys(cols: dict, keep: np.ndarray) -> np.ndarray:
@@ -892,6 +898,111 @@ def coverage_add_records_case(rec: dr.Records, r0: int, r1: int, ref: int,
                 lambda: ([torch.cumsum(dk[:span].to(torch.int64), 0)],
                          [torch.cumsum(dp[:span].to(torch.int64), 0)]),
                 bytes=nbytes, ops=words + match_bases)
+
+
+def pileup_loci(cols: dict, n: int, seed: int = 0, n_refs: int = 1, edges: int = 0,
+                duplicates: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """(chromosome numbers, 1-based positions) of ``n`` loci, unsorted, over
+    the records of ``alignment_records``' columns: random positions in
+    their range on chromosomes ``1..n_refs`` (a record's ``ref_id`` r is
+    chromosome r + 1), ``edges`` more at the first and last base of random
+    ops of random records, and ``duplicates`` repeats of loci already
+    drawn."""
+    rng = np.random.default_rng(seed)
+    lo, hi = int(cols["pos"].min()) + 1, int(cols["pos"].max()) + 400
+    chrs = rng.integers(1, n_refs + 1, size=n)
+    pos = rng.integers(lo, hi, size=n)
+    if edges:
+        op, length = cols["cigar"] & 0xF, (cols["cigar"] >> 4).astype(np.int64)
+        ref_len = length * np.isin(op, [0, 2, 3, 7, 8])
+        rec_of = np.repeat(np.arange(len(cols["pos"])), np.diff(cols["cigar_off"]))
+        before = np.cumsum(ref_len) - ref_len
+        start = (cols["pos"][rec_of].astype(np.int64) + 1 + before
+                 - before[cols["cigar_off"][:-1][rec_of]])
+        pick = rng.choice(np.flatnonzero(ref_len > 0), size=edges)
+        at_end = rng.random(edges) < 0.5
+        pos = np.concatenate([pos, start[pick] + np.where(at_end, ref_len[pick] - 1, 0)])
+        chrs = np.concatenate([chrs, cols["ref_id"][rec_of[pick]].astype(np.int64) + 1])
+    if duplicates:
+        again = rng.integers(0, len(pos), size=duplicates)
+        pos, chrs = np.concatenate([pos, pos[again]]), np.concatenate([chrs, chrs[again]])
+    shuffle = rng.permutation(len(pos))
+    return chrs[shuffle].astype(np.int64), pos[shuffle].astype(np.int64)
+
+
+def pileup_case(rec: dr.Records, loci: torch.Tensor, table: torch.Tensor, min_mapq: int,
+                min_baseq: int, track_mapq0: bool) -> Case:
+    """B1's record form counting a batch's records at ``loci`` (``table``:
+    each reference's range of them, as ``DevicePileup`` holds them), with
+    MAPQ-0 counters or without, into counters of their own. Bytes, a floor
+    of what the kernel must read once: 16 a record (its position, key, MAPQ
+    and CIGAR offset), the loci and the table; for the records that reach a
+    locus, their CIGAR words, one more offset and one base and one quality
+    byte a base it counts; the counters written once (atomics not counted).
+    Operations: an addition a CIGAR word of those records and a compare a
+    locus they reach."""
+    n = loci.shape[0]
+    outs = [torch.zeros((7 if track_mapq0 else 5) * n, dtype=torch.int32, device=loci.device)
+            for _ in range(2)]
+    views = [(o[:4 * n].view(n, 4), o[4 * n:5 * n],
+              *((o[5 * n:6 * n], o[6 * n:]) if track_mapq0 else ())) for o in outs]
+    _, _, _, _, a, b, (rec_of, _, _, _, _) = dr._pileup_records(rec, loci, table)
+    reach = b > a
+    words = int(reach[rec_of].sum())
+    bases = int((dr.pileup_hits(rec, loci, table, min_mapq, min_baseq)[2] < dr.DELETION).sum())
+    nbytes = (16 * rec.pos.shape[0] + 4 * n + 4 * table.numel() + 4 * words
+              + 8 * int(reach.sum()) + 2 * bases + 4 * outs[0].numel())
+    return Case("pileup_add_records", dr.pileup_add_records_into,
+                lambda: dr.pileup_add_records_into(rec, loci, table, min_mapq, min_baseq,
+                                                   *views[0]),
+                lambda: dr.pileup_add_records_plain(rec, loci, table, min_mapq, min_baseq,
+                                                    *views[1]),
+                lambda: ([outs[0]], [outs[1]]), bytes=nbytes,
+                ops=words + int((b - a).clamp(min=0).sum()))
+
+
+# B1's record form at its edges: alignment_records' arguments (each with
+# records without SEQ, 0xFF qualities, every CIGAR op, MAPQ 0 and flags the
+# filter drops); the loci lie on all but the last chromosome
+PILEUP_EDGES = {
+    "sorted, three chromosomes, one without loci": dict(n=4000, seed=51, width=20_000,
+                                                        n_refs=3),
+    "unsorted, two chromosomes": dict(n=4000, seed=52, width=20_000, n_refs=3, ordered=False),
+    "a pile on a few loci": dict(n=3000, seed=53, start=5000, width=40, n_refs=2),
+    "long N ops": dict(n=3000, seed=54, width=200_000, n_refs=2, long_n=20_000),
+}
+# (min_mapq, min_baseq, track_mapq0, include_not_properly_paired)
+PILEUP_PARAMS = ((1, 13, False, False), (0, 0, True, True), (20, 20, True, False),
+                 (1, 13, True, True), (1, 256, False, True))
+
+
+def pileup_keys(cols: dict, include_not_properly_paired: bool) -> np.ndarray:
+    """The pileup's keys of ``alignment_records``' columns: a record's
+    ``ref_id`` unless it is secondary, supplementary, a duplicate or
+    unmapped or (unless ``include_not_properly_paired``) not properly
+    paired, else -1."""
+    flag = cols["flag"]
+    keep = (flag & 0xD04) == 0
+    if not include_not_properly_paired:
+        keep &= (flag & 0x2) != 0
+    return records_keys(cols, keep)
+
+
+def pileup_edge_case(label: str, params: tuple, device: torch.device) -> Case:
+    """B1's record form on ``PILEUP_EDGES[label]``'s records at 300 random
+    loci, 300 at the first or last base of an op and 30 repeated, with
+    ``PILEUP_PARAMS``' ``params``."""
+    args = PILEUP_EDGES[label]
+    min_mapq, min_baseq, track_mapq0, npp = params
+    cols = alignment_records(**args)
+    n_refs = args.get("n_refs", 1)
+    chrs, pos = pileup_loci(cols, 300, seed=args["seed"], n_refs=max(n_refs - 1, 1),
+                            edges=300, duplicates=30)
+    engine = dr.DevicePileup(chrs, pos, np.arange(1, n_refs + 1), track_mapq0, device)
+    rec = dr.upload_records(cols["pos"], pileup_keys(cols, npp), cols["cigar_off"],
+                            cols["cigar"], cols["seq_off"], cols["qual"], seq=cols["seq"],
+                            mapq=cols["mapq"], device=device)
+    return pileup_case(rec, engine.loci, engine.table, min_mapq, min_baseq, track_mapq0)
 
 
 def pileup_indices(n_snps: int, n: int, seed: int = 0, hot: int = 0):

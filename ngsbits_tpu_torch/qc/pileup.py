@@ -1,12 +1,26 @@
 """Batched pileup engine: base counts at SNP positions.
 
 Counterpart of ``PileupResult`` and ``pileup_at_positions`` in
-``ngsbits_tpu/qc/pileup.py``. The base counts go to ``DeviceBincount`` (B1,
-``ops/device_reduce.py``) on the port's device, always (the JAX package's
-size threshold is not carried over); with ``count_fragments`` they stay on
-the host, as in the JAX package. Without a BAI route the pass is always a
-sweep of the whole file (the JAX package's route without an index: the same
-counts). ``indel_pileup_at_positions`` is not ported yet.
+``ngsbits_tpu/qc/pileup.py``. One sequential sweep of the BAM (the JAX
+package's route without an index: the same counts; the BAI route is not
+ported), its batches decoded on a prefetch thread. For each batch the host
+marks the records its flag filter keeps (a record's key: its ``ref_id``,
+else -1), keeps those whose reference span holds a locus (one pair of
+searches a chromosome: a few percent of a panel's BAM) and uploads their
+columns in one copy; B1's record form (``DevicePileup``,
+``ops/device_reduce.py``, ``csrc/pileup.cu``) walks their CIGARs to the loci
+on the card and counts bases, deletions and, with ``track_mapq0``, the reads
+and the MAPQ-0 reads over each locus, always (the JAX package's size
+threshold is not carried over). The counters are fetched once, at the end.
+Uploading every record instead (about 21 MB of bases and qualities a batch
+of 65,536) was slower end to end on the H100 (``PERF.md``). With ``count_fragments`` (name-based dedup) the counting
+stays on the host, as in the JAX package: the same record form's plain
+version on the CPU gives each (read, locus, base, quality) in record order,
+and the dedup is the JAX package's loop. A locus past its record's SEQ (a
+record with M ops but no SEQ) has no base and counts nowhere, where the JAX
+package reads the next record's bytes (``ROADMAP.md`` F9). A record without
+a reference (``ref_id`` -1) counts nowhere. ``indel_pileup_at_positions`` is
+not ported yet.
 
 Behavioral reference: ngs-bits BamReader::getPileup (cppNGS/BamReader.cpp:
 809-878): skip secondary/supplementary/duplicate/unmapped; optionally require
@@ -14,11 +28,6 @@ properly-paired; mapq>=min_mapq; base at position extracted by CIGAR walk
 (M/=/X only — deletions/skips don't contribute A/C/G/T counts);
 optional fragment dedup by read name (disagreeing pair bases: higher quality
 wins, base-vs-deletion removes both).
-
-Design: instead of one random access per SNP, ONE sequential pass
-over the BAM; per batch the M-op segments are expanded vectorized and joined
-against the sorted SNP position list per chromosome via searchsorted —
-the per-(read,SNP) base/qual extraction is pure numpy indexing.
 """
 
 from __future__ import annotations
@@ -26,16 +35,12 @@ from __future__ import annotations
 import numpy as np
 
 from ..core.chromosome import Chromosome
-from ..ops.device_reduce import DeviceBincount
-from ..io.bam import (BamReader, FLAG_DUPLICATE, FLAG_PROPER_PAIR,
+from ..io.bam import (BamBatch, BamReader, FLAG_DUPLICATE, FLAG_PROPER_PAIR,
                       FLAG_SECONDARY, FLAG_SUPPLEMENTARY, FLAG_UNMAPPED)
+from ..ops.device_reduce import DELETION, DevicePileup, pileup_hits, upload_records
+from ..utils.prefetch import prefetch
 
-# 4-bit code -> A,C,G,T index (others -> -1)
-_CODE2IDX = np.full(16, -1, dtype=np.int8)
-_CODE2IDX[1] = 0  # A
-_CODE2IDX[2] = 1  # C
-_CODE2IDX[4] = 2  # G
-_CODE2IDX[8] = 3  # T
+_DROPPED = FLAG_SECONDARY | FLAG_SUPPLEMENTARY | FLAG_DUPLICATE | FLAG_UNMAPPED
 
 
 class PileupResult:
@@ -75,6 +80,17 @@ def base_index(seq: bytes) -> int:
     return BASE2IDX.get(seq, -1)
 
 
+def record_keys(batch: BamBatch, include_not_properly_paired: bool) -> np.ndarray:
+    """Each record's key for the pileup: its ``ref_id`` where the flag
+    filter keeps it (not secondary, supplementary, duplicate or unmapped
+    and, unless ``include_not_properly_paired``, properly paired), else
+    -1."""
+    sel = (batch.flag & _DROPPED) == 0
+    if not include_not_properly_paired:
+        sel &= (batch.flag & FLAG_PROPER_PAIR) != 0
+    return np.where(sel, batch.ref_id, -1).astype(np.int32)
+
+
 def pileup_at_positions(bam_file: str, chr_nums: np.ndarray, positions: np.ndarray,
                         min_mapq: int = 1, include_not_properly_paired: bool = False,
                         min_baseq: int = 0, count_fragments: bool = False,
@@ -83,177 +99,69 @@ def pileup_at_positions(bam_file: str, chr_nums: np.ndarray, positions: np.ndarr
     """Pileup base counts at the given loci.
 
     chr_nums: [N] chromosome numbers, positions: [N] 1-based positions.
-    Loci need not be sorted; an index mapping is built internally.
+    Loci need not be sorted; the engine sorts them and puts the counts back
+    in their order.
     """
     n = len(positions)
     result = PileupResult(n)
     if n == 0:
         return result
 
-    # base counts: scatter-adds into counters on the device, fetched once
-    dev_counts = None if count_fragments else DeviceBincount(n * 4)
-
-    # group loci by chromosome, sorted positions with original index mapping
-    order = np.lexsort((positions, chr_nums))
-    s_chr = chr_nums[order]
-    s_pos = positions[order]
-    chr_bounds = {}
-    change = np.flatnonzero(np.diff(s_chr)) + 1
-    bounds = np.concatenate(([0], change, [n]))
-    for k in range(len(bounds) - 1):
-        chr_bounds[int(s_chr[bounds[k]])] = (int(bounds[k]), int(bounds[k + 1]))
-
     own_reader = reader is None
     if own_reader:
         reader = BamReader(bam_file)
     ref_num = np.array([Chromosome(nm).num for nm in reader.ref_names], dtype=np.int64)
-
-    frag_best: dict = {} if count_fragments else None
-
-    for batch in reader:
-        flag = batch.flag
-        sel = (flag & (FLAG_SECONDARY | FLAG_SUPPLEMENTARY | FLAG_DUPLICATE | FLAG_UNMAPPED)) == 0
-        if not include_not_properly_paired:
-            sel &= (flag & FLAG_PROPER_PAIR) != 0
-        if track_mapq0 and sel.any():
-            # count overlapping flag-passing reads (before the mapq cut) and
-            # the mapq0 subset, per locus (getPileup reads_mapped/reads_mapq0)
-            r_start = batch.pos.astype(np.int64) + 1
-            r_end = batch.end_positions().astype(np.int64)
-            r_chr = ref_num[np.maximum(batch.ref_id, 0)]
-            for which, mask in (("mapped", sel), ("mapq0", sel & (batch.mapq == 0))):
-                rr = np.flatnonzero(mask)
-                if len(rr) == 0:
-                    continue
-                arr = result.mapped if which == "mapped" else result.mapq0
-                for cn in np.unique(r_chr[rr]):
-                    sl = chr_bounds.get(int(cn))
-                    if sl is None:
-                        continue
-                    lo, hi = sl
-                    pos_arr = s_pos[lo:hi]
-                    seg = rr[r_chr[rr] == cn]
-                    a = np.searchsorted(pos_arr, r_start[seg], side="left")
-                    b = np.searchsorted(pos_arr, r_end[seg], side="right")
-                    events = np.zeros(hi - lo + 1, dtype=np.int64)
-                    np.add.at(events, a, 1)
-                    np.add.at(events, b, -1)
-                    cum = np.cumsum(events[:-1])
-                    arr[order[lo:hi]] += cum
-        sel &= batch.mapq >= min_mapq
-        idx = np.flatnonzero(sel)
-        if len(idx) == 0:
-            continue
-
-        # expand M ops of selected reads
-        lens = (batch.cigar >> 4).astype(np.int64)
-        ops = (batch.cigar & 0xF).astype(np.int64)
-        co = batch.cigar_off
-        n_ops = co[1:] - co[:-1]
-        read_of_op = np.repeat(np.arange(len(batch)), n_ops)
-        ref_consume = lens * np.array([1, 0, 1, 1, 0, 0, 0, 1, 1], dtype=np.int64)[ops]
-        q_consume = lens * np.array([1, 1, 0, 0, 1, 0, 0, 1, 1], dtype=np.int64)[ops]
-        ref_before = np.concatenate(([0], np.cumsum(ref_consume)[:-1]))
-        q_before = np.concatenate(([0], np.cumsum(q_consume)[:-1]))
-        first_op = np.minimum(co[:-1], max(len(ops) - 1, 0))
-        ref_off = ref_before - np.repeat(ref_before[first_op], n_ops)
-        q_off = q_before - np.repeat(q_before[first_op], n_ops)
-
-        sel_mask = np.zeros(len(batch), dtype=bool)
-        sel_mask[idx] = True
-        op_sel = sel_mask[read_of_op]
-        is_m = ((ops == 0) | (ops == 7) | (ops == 8)) & op_sel
-
-        # deletion spans: loci inside D ops count as '-' (extractBaseByCIGAR)
-        is_d = (ops == 2) & op_sel
-        if is_d.any() and not count_fragments:
-            d_read = read_of_op[is_d]
-            d_chr = ref_num[batch.ref_id[d_read]]
-            d_start = batch.pos[d_read].astype(np.int64) + 1 + ref_off[is_d]
-            d_end = d_start + lens[is_d] - 1
-            for cn in np.unique(d_chr):
-                sl = chr_bounds.get(int(cn))
-                if sl is None:
-                    continue
-                lo, hi = sl
-                pos_arr = s_pos[lo:hi]
-                seg = np.flatnonzero(d_chr == cn)
-                a = np.searchsorted(pos_arr, d_start[seg], side="left")
-                b = np.searchsorted(pos_arr, d_end[seg], side="right")
-                cnt = b - a
-                nz = cnt > 0
-                if not nz.any():
-                    continue
-                total = int(cnt[nz].sum())
-                within = np.arange(total, dtype=np.int64) - np.repeat(
-                    np.concatenate(([0], np.cumsum(cnt[nz][:-1]))), cnt[nz])
-                snp_local = np.repeat(a[nz], cnt[nz]) + within
-                np.add.at(result.dels, order[lo + snp_local], 1)
-
-        if not is_m.any():
-            continue
-        m_read = read_of_op[is_m]
-        m_rid = batch.ref_id[m_read]
-        m_chr = ref_num[m_rid]
-        m_ref_start = batch.pos[m_read].astype(np.int64) + 1 + ref_off[is_m]
-        m_ref_end = m_ref_start + lens[is_m] - 1
-        m_q_start = batch.seq_off[:-1][m_read] + q_off[is_m]
-
-        # join against loci per chromosome
-        for cn in np.unique(m_chr):
-            sl = chr_bounds.get(int(cn))
-            if sl is None:
+    engine = DevicePileup(chr_nums, positions, ref_num, track_mapq0,
+                          device="cpu" if count_fragments else None)
+    frag_best: dict = {}
+    for batch in prefetch(reader, depth=2):
+        keys = record_keys(batch, include_not_properly_paired)
+        reach = engine.reaching(batch.pos, batch.end_positions(), keys)
+        if not reach.all():  # only the records that reach a locus go up
+            if not reach.any():
                 continue
-            lo, hi = sl
-            pos_arr = s_pos[lo:hi]
-            seg = np.flatnonzero(m_chr == cn)
-            a = np.searchsorted(pos_arr, m_ref_start[seg], side="left")
-            b = np.searchsorted(pos_arr, m_ref_end[seg], side="right")
-            cnt = b - a
-            nz = cnt > 0
-            if not nz.any():
+            batch, keys = batch.subset(reach), keys[reach]
+        rec = upload_records(batch.pos, keys, batch.cigar_off, batch.cigar, batch.seq_off,
+                             batch.qual, seq=batch.seq, mapq=batch.mapq, device=engine.device)
+        if count_fragments:
+            _count_fragments(batch, rec, engine, min_mapq, min_baseq, frag_best,
+                             result.counts)
+            if not track_mapq0:
                 continue
-            seg = seg[nz]
-            a = a[nz]
-            cnt = cnt[nz]
-            total = int(cnt.sum())
-            rep_seg = np.repeat(seg, cnt)
-            within = np.arange(total, dtype=np.int64) - np.repeat(
-                np.concatenate(([0], np.cumsum(cnt[:-1]))), cnt)
-            snp_local = np.repeat(a, cnt) + within
-            snp_global = order[lo + snp_local]
-            snp_pos = pos_arr[snp_local]
-            q_index = m_q_start[rep_seg] + (snp_pos - m_ref_start[rep_seg])
-            codes = _CODE2IDX[batch.seq[q_index]]
-            quals = batch.qual[q_index]
-            keep = codes >= 0
-            if min_baseq > 0:
-                keep &= quals >= min_baseq
-            if count_fragments:
-                reads_glob = m_read[rep_seg]
-                for k in np.flatnonzero(keep):
-                    name = batch.name(int(reads_glob[k]))
-                    key = (name, int(snp_global[k]))
-                    code = int(codes[k])
-                    q = int(quals[k])
-                    if key in frag_best:
-                        # reference: first read already counted; second read of
-                        # the pair replaces it only when higher quality
-                        prev_code, prev_q = frag_best.pop(key)
-                        if prev_code != code and prev_q < q:
-                            result.counts[int(snp_global[k]), code] += 1
-                        else:
-                            result.counts[int(snp_global[k]), prev_code] += 1
-                    else:
-                        frag_best[key] = (code, q)
-                continue
-            dev_counts.add((snp_global[keep] * 4 + codes[keep]).astype(np.int32))
-
-    if count_fragments and frag_best:
-        for (name, snp_idx), (code, _q) in frag_best.items():
-            result.counts[snp_idx, code] += 1
-    if dev_counts is not None:
-        result.counts += dev_counts.finalize().reshape(n, 4)
-    if own_reader:
+        engine.add(rec, min_mapq, min_baseq)
+    if own_reader:  # the prefetch thread has finished with it
         reader.close()
+    got = engine.finalize()
+
+    if count_fragments:  # no deletion counts, as in the JAX package
+        for (_name, snp_idx), (code, _q) in frag_best.items():
+            result.counts[snp_idx, code] += 1
+    else:
+        result.counts, result.dels = got["counts"], got["dels"]
+    if track_mapq0:
+        result.mapped, result.mapq0 = got["mapped"], got["mapq0"]
     return result
+
+
+def _count_fragments(batch: BamBatch, rec, engine: DevicePileup, min_mapq: int,
+                     min_baseq: int, frag_best: dict, counts: np.ndarray):
+    """The reference's fragment dedup over one batch's bases at the loci
+    (``pileup_hits``, in record order), on the host: the first read of a
+    name at a locus waits in ``frag_best``; the second replaces its base
+    only when it differs and has the higher quality."""
+    records, loci, base, qual = (t.numpy() for t in pileup_hits(
+        rec, engine.loci, engine.table, min_mapq, min_baseq))
+    is_base = base < DELETION
+    for r, j, code, q in zip(records[is_base].tolist(), engine.order[loci[is_base]].tolist(),
+                             base[is_base].tolist(), qual[is_base].tolist()):
+        key = (batch.name(r), j)
+        if key in frag_best:
+            # reference: first read already counted; second read of the pair
+            # replaces it only when higher quality
+            prev_code, prev_q = frag_best.pop(key)
+            if prev_code != code and prev_q < q:
+                counts[j, code] += 1
+            else:
+                counts[j, prev_code] += 1
+        else:
+            frag_best[key] = (code, q)

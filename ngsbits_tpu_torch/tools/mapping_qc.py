@@ -1,8 +1,9 @@
 """MappingQC — QC metrics based on mapped NGS reads.
 
 Counterpart of ``ngsbits_tpu/tools/mapping_qc.py``, with the same flags. The
-ROI depth (C1, C2) and the contamination pileup's base counts (B1) run on the
-port's device, as does ``-read_qc`` (unpack, K1, tails). ``seconds`` holds
+ROI depth (C1, C2) and the contamination pileup (B1's record form: the
+records' CIGARs walked to the SNP loci) run on the port's device, as does
+``-read_qc`` (unpack, K1, tails). ``seconds`` holds
 the host seconds of each stage after ``execute``, under the names ``-debug``
 prints (raw read QC, main QC, contamination check), and in ROI mode those of
 the main QC's BAM pass (``scan``) and depth finalize (``finalize``).

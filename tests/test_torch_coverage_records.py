@@ -305,9 +305,11 @@ def test_wrapper_takes_the_plain_version_on_the_cpu_and_counts_no_launch():
     cols = selfcheck.alignment_records(300, seed=12)
     rec = dr.upload_records(cols["pos"], np.zeros(300, np.int32), cols["cigar_off"],
                             cols["cigar"], cols["seq_off"], cols["qual"], device=CPU)
-    assert [t.dtype for t in rec] == [torch.int32, torch.int32, torch.int64, torch.int32,
-                                      torch.int64, torch.uint8]
-    assert all(t.data_ptr() % 16 == 0 for t in rec)
+    assert rec.seq is None and rec.mapq is None  # the pileup's columns, not asked for
+    uploaded = [t for t in rec if t is not None]
+    assert [t.dtype for t in uploaded] == [torch.int32, torch.int32, torch.int64, torch.int32,
+                                           torch.int64, torch.uint8]
+    assert all(t.data_ptr() % 16 == 0 for t in uploaded)
     np.testing.assert_array_equal(rec.cigar.numpy().view(np.uint32), cols["cigar"])
     before = dr.coverage_add_records_into.launches
     diff = torch.zeros(20_001, dtype=torch.int32)

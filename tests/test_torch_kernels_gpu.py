@@ -34,7 +34,10 @@ starts, runs across mask words and warps' tiles, and chr1's box as one
 region; C1's record form (a BAM batch's records walked on the card) at a
 few thousand records: sorted and unsorted, several chromosomes, a pile, a
 box's edges, a sparse panel with N ops over many blocks, -min_baseq 0, 20
-and 30, several batches into one difference array against the CPU.
+and 30, several batches into one difference array against the CPU; B1's
+record form (the contamination pileup) at ``selfcheck.PILEUP_EDGES`` with
+each of ``PILEUP_PARAMS``, several batches into one ``DevicePileup``
+against the CPU, and the wrapper's refusals.
 Integer outputs: the tolerance is exact equality. Skips where no CUDA
 device is available."""
 
@@ -1219,3 +1222,89 @@ def test_region_sums_match_plain_version_where_the_tiling_differs(kind):
     selfcheck.device_ms(case.kernel, calls=2, runs=1)
     torch.cuda.synchronize()
     assert selfcheck.max_abs_err(case) == 0
+
+
+# ------------------------------------------------------------ B1's record form
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("params", selfcheck.PILEUP_PARAMS)
+@pytest.mark.parametrize("label", sorted(selfcheck.PILEUP_EDGES))
+def test_pileup_add_records_matches_plain_version(label, params):
+    """B1's record form at a few thousand records (sorted and unsorted,
+    several chromosomes and one without loci, a pile on a few loci, long N
+    ops; records without SEQ, 0xFF qualities, every CIGAR op, MAPQ 0,
+    filtered records) at loci at op edges and repeated, with MAPQ-0
+    counters and without, min_mapq 0, 1 and 20, min_baseq 0, 13, 20 and
+    256; one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    case = selfcheck.pileup_edge_case(label, params, torch.device("cuda"))
+    before = case.wrapper.launches
+    case.kernel()
+    case.plain()
+    torch.cuda.synchronize()
+    assert case.wrapper.launches == before + 1
+    assert selfcheck.max_abs_err(case) == 0
+    if params[1] < 256:
+        assert case.outputs()[0][0].max() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("track_mapq0", [False, True])
+def test_pileup_engine_on_card_matches_cpu(track_mapq0):
+    """Three batches into one ``DevicePileup`` on the card and on the CPU,
+    fetched once: the same counts in the loci's order; one launch a
+    batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ngsbits_tpu_torch.ops import device_reduce as dr
+    batches = [selfcheck.alignment_records(3000, seed=seed, width=50_000, n_refs=2)
+               for seed in (61, 62, 63)]
+    chrs, pos = selfcheck.pileup_loci(batches[0], 500, seed=64, n_refs=2, edges=200,
+                                      duplicates=20)
+    got = {dev: dr.DevicePileup(chrs, pos, np.array([1, 2]), track_mapq0, dev)
+           for dev in ("cuda", "cpu")}
+    before = dr.pileup_add_records_into.launches
+    for cols in batches:
+        for dev, eng in got.items():
+            rec = dr.upload_records(cols["pos"], selfcheck.pileup_keys(cols, True),
+                                    cols["cigar_off"], cols["cigar"], cols["seq_off"],
+                                    cols["qual"], seq=cols["seq"], mapq=cols["mapq"], device=dev)
+            eng.add(rec, 1, 13)
+    assert dr.pileup_add_records_into.launches == before + 3
+    card, cpu = got["cuda"].finalize(), got["cpu"].finalize()
+    assert sorted(card) == sorted(cpu)
+    for field in card:
+        np.testing.assert_array_equal(card[field], cpu[field], field)
+    assert card["counts"].sum() > 0 and card["dels"].sum() > 0
+
+
+@pytest.mark.gpu
+def test_pileup_add_records_refuses_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ngsbits_tpu_torch.ops import device_reduce as dr
+    cols = selfcheck.alignment_records(100, seed=65)
+    rec = dr.upload_records(cols["pos"], np.zeros(100, np.int32), cols["cigar_off"],
+                            cols["cigar"], cols["seq_off"], cols["qual"], seq=cols["seq"],
+                            mapq=cols["mapq"], device="cuda")
+    eng = dr.DevicePileup(np.ones(3), np.array([5, 9, 400]), np.array([1]), True, "cuda")
+    args = (eng.loci, eng.table, 1, 13, eng.counts, eng.dels, eng.mapped, eng.mapq0)
+    before = dr.pileup_add_records_into.launches
+    with pytest.raises(TypeError):
+        dr.pileup_add_records_into(rec._replace(mapq=rec.mapq.to(torch.int32)), *args)
+    with pytest.raises(TypeError):
+        dr.pileup_add_records_into(rec, eng.loci.to(torch.int64), *args[1:])
+    with pytest.raises(ValueError, match="shape"):
+        dr.pileup_add_records_into(rec, eng.loci, eng.table, 1, 13, eng.counts[:2], eng.dels)
+    with pytest.raises(ValueError, match="devices"):
+        dr.pileup_add_records_into(rec, eng.loci.cpu(), *args[1:])
+    with pytest.raises(ValueError, match="bases"):
+        dr.pileup_add_records_into(rec._replace(seq=None), *args)
+    empty = dr.upload_records(np.zeros(0, np.int32), np.zeros(0, np.int32),
+                              np.zeros(1, np.int64), np.zeros(0, np.uint32), np.zeros(1, np.int64),
+                              np.zeros(0, np.uint8), seq=np.zeros(0, np.uint8),
+                              mapq=np.zeros(0, np.uint8), device="cuda")
+    dr.pileup_add_records_into(empty, *args)  # no records: no launch
+    assert dr.pileup_add_records_into.launches == before
+    assert int(eng.out.abs().sum()) == 0

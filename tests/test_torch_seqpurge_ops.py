@@ -286,7 +286,7 @@ def test_cpu_tensors_take_plain_version_without_counting():
     tsp.adapter_evidence(*_t(read1, read2, len1, len2), A1[:10], A2[:10])
     tsp.adapter_scan(*_t(read1, len1), A1[:20])
     assert [k.launches for k in KERNELS] == before
-    assert len(KERNELS) == 14
+    assert len(KERNELS) == 15
 
 
 def test_wrappers_refuse_other_devices_and_long_adapters():
