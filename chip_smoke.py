@@ -47,7 +47,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
             ``selfcheck.PILEUP_PARAMS``), and its indel form at its edges
             (``selfcheck.INDEL_EDGES``: I and D ops first and last in
             records, loci at the window's edges and middle, just outside
-            and repeated, window 0, 1 and 3, min_mapq 0, 1 and 20).
+            and repeated, window 0, 1 and 3, min_mapq 0, 1 and 20; the
+            reached loci staged in shared memory, and 200,000 of them
+            searched in global memory; a chromosome whose reached range is
+            empty).
             The coverage tools' C2 (dense mode alone), R1 and R2 at their
             edges (one-base regions, regions at both ends and over the whole
             span, overlapping and repeated (R1) or disjoint (R2), cutoffs of
@@ -198,9 +201,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
             (set-up, sweep, fetch, output) and its launches. Then every
             launch of the indel form held against its plain version on
             the records it was given (the hits the run got, sorted; not
-            in the runs' times) and the form timed at the launch of median
-            hits. ``--phase callers`` runs only the kernels and this
-            phase.
+            in the runs' times; the sweep fetches a launch's hits only
+            after its next launch, and each is held against the plain
+            version over every locus, where the launch saw only the loci
+            the batch can reach) and the form timed at the launch of median
+            hits (``--save-indel-launch FILE`` saves its inputs). Prints
+            VcfMerge's fetch stage. ``--phase callers`` runs only the
+            kernels and this phase.
 
 Each phase's line prints the seconds since the script started.
 
@@ -497,7 +504,7 @@ def kernels(dev: torch.device) -> dict:
         else:
             _check_equal(case, label)
             print(f"{case.name:16s} {label}: equal", flush=True)
-    coverage_edges(dev)
+    coverage_edges(records, dev)
     similarity_kernels(records, dev)
     return records
 
@@ -510,7 +517,7 @@ def _hist_params(avg_depth: float, cfdna: bool = False) -> tuple[int, int, int, 
     return step, hist_max, Histogram(0, hist_max, step).bin_count(), half
 
 
-def coverage_edges(dev: torch.device):
+def coverage_edges(records: dict, dev: torch.device):
     """C1, C2 and B1 against their plain versions at their edges: span 1;
     spans at 0 and at the end, of length 0; a span that is not a multiple
     of C2's tile; piles at and above hist_max; cfDNA's and the adaptive
@@ -571,10 +578,18 @@ def coverage_edges(dev: torch.device):
     phase("kernels: B1's indel form at its edges (at the main path's inputs after the "
           "callers phase)")
     for label in selfcheck.INDEL_EDGES:
-        _check_equal(selfcheck.pileup_indel_edge_case(label, dev), label)
+        rec, eng, mq, window, capacity, cut = selfcheck.indel_edge_inputs(label, dev)
+        case = selfcheck.pileup_indels_case(rec, eng.loci, eng.table, mq, window, capacity, cut)
+        where = "shared" if cut[1] - cut[0] <= dr.INDEL_STAGED_LOCI else "global"
+        if where == "global":  # timed: the loci past the shared memory's limit
+            _record(records, case, f"{label}: {rec.pos.shape[0]} records, {cut[1] - cut[0]} "
+                    f"loci reached", False, cold=True)
+        else:
+            _check_equal(case, label)
         print(f"pileup_indels    {label}: I and D ops first and last in records, loci at the "
               f"window's edges and middle, just outside and repeated, records without SEQ, "
-              f"MAPQ 0: equal", flush=True)
+              f"MAPQ 0; {cut[1] - cut[0]} loci reached, searched in {where} memory; "
+              f"{case.outputs()[0][0].shape[0]} hits: equal", flush=True)
     phase("kernels: the coverage tools' C1 record form, C2 (dense mode), R1 and R2 at "
           "their edges (at the main path's inputs after the coverage phase)")
     rng = np.random.default_rng(27)
@@ -788,10 +803,10 @@ def _capture_coverage_inputs():
         got["coverage_finalize"].append((self.diff.clone(), step, hist_max, bins, half_depth))
         return cov_histogram(self, step, hist_max, bins, half_depth)
 
-    def add_records(self, rec, min_mapq, min_baseq, indel_ops=0):
+    def add_records(self, rec, min_mapq, min_baseq, indel_ops=0, loci_range=None):
         got["pileup_add_records"].append((rec, self.loci, self.table, min_mapq, min_baseq,
                                           self.mapped is not None))
-        return pileup_add(self, rec, min_mapq, min_baseq, indel_ops)
+        return pileup_add(self, rec, min_mapq, min_baseq, indel_ops, loci_range)
 
     DeviceCoverage.add_reads, DeviceCoverage.histogram, DevicePileup.add = (
         coverage_add_reads, histogram, add_records)
@@ -1809,24 +1824,41 @@ def _trio_bam(job):
     synth.synth_bam(path, genome, pairs, seed=seed, roi=roi, snps=snps, indels=indels)
 
 
+class _KeptHits:
+    """A launch's ``IndelHits`` as the sweep gets it: its ``hits()`` also
+    keep a copy of what the sweep got, so the launch can be checked after
+    the run while the sweep frees the pinned copy as it would."""
+
+    def __init__(self, pending, kept: list):
+        self.pending, self.kept = pending, kept
+
+    def hits(self):
+        hits = self.pending.hits()
+        self.kept.append(hits.clone())
+        return hits
+
+
 @contextlib.contextmanager
 def _capture_indel_launches():
     """Each launch of B1's indel form while the block runs, taken where
     ``DevicePileup.add`` makes it: (records as they went up, loci, table,
-    min_mapq, window, capacity, the hits the launch gave), in launch order;
-    and the number of BAM sweeps the pileups made (readers opened)."""
+    min_mapq, window, capacity, loci range, a list that gets the hits the
+    sweep fetched, once it waits for them: after the next launch), in
+    launch order; and the number of BAM sweeps the pileups made (readers
+    opened)."""
     from ngsbits_tpu_torch.ops.device_reduce import DevicePileup
     from ngsbits_tpu_torch.qc import pileup as pm
     got: dict = {"launches": [], "sweeps": 0}
     add, reader = DevicePileup.add, pm.BamReader
 
-    def add_records(self, rec, min_mapq, min_baseq, indel_ops=0):
-        hits = add(self, rec, min_mapq, min_baseq, indel_ops)
-        capacity = indel_ops * self.indel_depth
-        if hits is not None and capacity:
-            got["launches"].append((rec, self.loci, self.table, min_mapq, self.indel_window,
-                                    capacity, hits))
-        return hits
+    def add_records(self, rec, min_mapq, min_baseq, indel_ops=0, loci_range=None):
+        pending = add(self, rec, min_mapq, min_baseq, indel_ops, loci_range)
+        if pending is None:
+            return None
+        kept: list = []
+        got["launches"].append((rec, self.loci, self.table, min_mapq, self.indel_window,
+                                pending.capacity, loci_range, kept))
+        return _KeptHits(pending, kept)
 
     def open_reader(*a, **kw):
         got["sweeps"] += 1
@@ -1853,11 +1885,13 @@ def _same_bytes(card: Path, jax: Path) -> str:
     raise AssertionError(f"{card.name}: the port and the JAX package differ")
 
 
-def callers(records: dict):
+def callers(records: dict, save_launch: Path | None = None):
     """VcfMerge with re-calling, TrioMaternalContamination and
     BedAnnotateFreq on the card over a synthetic trio, each against the JAX
     package's host route; every launch of B1's indel form held against its
-    plain version after the runs."""
+    plain version after the runs, on the hits the sweep fetched a launch
+    later. ``save_launch``: where to save the inputs of the launch of median
+    hits (``torch.save``; for ``scripts/indel_variants.py --launch``)."""
     import numpy as np
     from ngsbits_tpu_torch.ops import device_reduce as dr
     from ngsbits_tpu_torch.ops import selfcheck
@@ -1911,7 +1945,9 @@ def callers(records: dict):
               + (f":\n" + "\n".join(text) if suffix == "txt" else ""), flush=True)
         if suffix == "vcf":
             rc = sum(l.count(":RC") for l in text if not l.startswith("#"))
-            print(f"  {rc} genotypes added by re-calling (CT=RC)", flush=True)
+            print(f"  {rc} genotypes added by re-calling (CT=RC); fetch stage (the engines' "
+                  f"launches, the waits for the indel form's copies a launch later, the "
+                  f"counters' fetch) {tool.seconds['fetch']:.4f} s", flush=True)
             threaded = card.with_name("threads.vcf")
             _reset()
             _, t_seconds = _port([*args, "-threads", "3", "-out", str(threaded)])
@@ -1929,22 +1965,37 @@ def callers(records: dict):
 
     phase(f"kernels: B1's indel form at the callers phase's {len(indel_launches)} launches")
     t0 = time.perf_counter()
-    for k, (rec, loci, table, mq, window, capacity, hits) in enumerate(indel_launches):
+    for k, (rec, loci, table, mq, window, capacity, cut, kept) in enumerate(indel_launches):
+        if len(kept) != 1:
+            raise AssertionError(f"pileup_indels launch {k}: its hits were fetched {len(kept)} "
+                                 f"times, not once")
         want = selfcheck.sorted_hits(dr.pileup_indels_plain(rec, loci, table, mq, window))
-        if not torch.equal(selfcheck.sorted_hits(hits), want):
+        if not torch.equal(selfcheck.sorted_hits(kept[0]), want):
             raise AssertionError(f"pileup_indels launch {k}: the run's hits differ from the "
                                  f"plain version's")
-    n_hits = [h.shape[0] for *_, h in indel_launches]
+    n_hits = [kept[0].shape[0] for *_, kept in indel_launches]
+    reached = [cut[1] - cut[0] for *_, cut, _ in indel_launches]
     print(f"pileup_indels: the hits of each of the {len(indel_launches)} launches equal the "
-          f"plain version's ({sum(n_hits)} hits, {min(n_hits)}-{max(n_hits)} a launch; "
-          f"checks {time.perf_counter() - t0:.2f} s, not in the runs' times)", flush=True)
-    k, (rec, loci, table, mq, window, capacity, hits) = _median_launch(
-        indel_launches, lambda a: a[-1].shape[0])
+          f"plain version's over every locus ({sum(n_hits)} hits, {min(n_hits)}-{max(n_hits)} "
+          f"a launch; the launches reached {min(reached)}-{max(reached)} loci, "
+          f"{sum(r > dr.INDEL_STAGED_LOCI for r in reached)} past the "
+          f"{dr.INDEL_STAGED_LOCI} staged in shared memory; checks "
+          f"{time.perf_counter() - t0:.2f} s, not in the runs' times)", flush=True)
+    k, (rec, loci, table, mq, window, capacity, cut, kept) = _median_launch(
+        indel_launches, lambda a: a[-1][0].shape[0])
     n_ops = dr.count_indel_ops(rec.cigar.cpu().numpy().view(np.uint32))
-    _record(records, selfcheck.pileup_indels_case(rec, loci, table, mq, window, capacity),
+    _record(records, selfcheck.pileup_indels_case(rec, loci, table, mq, window, capacity, cut),
             f"launch {k} of {len(indel_launches)} (median by hits): {rec.pos.shape[0]} records, "
-            f"{n_ops} I and D ops, {hits.shape[0]} hits at {loci.shape[0]} loci, window "
-            f"{window}, min_mapq {mq}, capacity {capacity}", True, cold=True)
+            f"{n_ops} I and D ops, {kept[0].shape[0]} hits at {loci.shape[0]} loci "
+            f"({cut[1] - cut[0]} reached), window {window}, min_mapq {mq}, capacity {capacity}",
+            True, cold=True)
+    if save_launch is not None:
+        torch.save(dict(rec={f: getattr(rec, f).cpu() for f in rec._fields
+                             if getattr(rec, f) is not None},
+                        loci=loci.cpu(), table=table.cpu(), min_mapq=mq, window=window,
+                        capacity=capacity, loci_range=cut, launch=k, launches=len(indel_launches)),
+                   save_launch)
+        print(f"saved the median launch's inputs to {save_launch}", flush=True)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -1956,6 +2007,9 @@ def main(argv: list[str] | None = None) -> int:
                          "run, so no launch counts); 'mappingqc', 'coverage', "
                          "'similarity' and 'callers' run the kernels phase and that "
                          "phase only")
+    ap.add_argument("--save-indel-launch", type=Path, metavar="FILE",
+                    help="the callers phase saves the inputs of B1's indel form's launch "
+                         "of median hits there (for scripts/indel_variants.py --launch)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1980,7 +2034,7 @@ def main(argv: list[str] | None = None) -> int:
             if args.phase in ("all", "similarity"):
                 similarity(records)
             if args.phase in ("all", "callers"):
-                callers(records)
+                callers(records, args.save_indel_launch)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
     print(json.dumps({"kernels": list(records.values())}))

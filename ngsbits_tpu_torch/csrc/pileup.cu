@@ -54,16 +54,43 @@
 //
 // The indel form also takes a thread a record: most records have no I or D op
 // and stop after one pass over their CIGAR words. Each I or D op lies at g,
-// pos + 1 plus the reference consumed before it; the thread searches its
-// chromosome's loci for the first at or after g - window and writes a hit
-// for each up to g + window, duplicates included. An I op whose bases lie
-// past the record's SEQ makes no hit: no other record's bytes are read. The
-// host reckons the capacity before the launch (the batch's I and D ops times
-// the most loci in any 2 * window + 1 positions), each hit claims its slot
-// with one 64-bit atomic on the count, and past the capacity the kernel only
-// counts, so the wrapper raises and never drops a hit. The hits come back in
-// one fetch with their count; their order is the atomics', and the host
-// counts them into a dict a locus, so no output depends on it.
+// pos + 1 plus the reference consumed before it, and makes a hit at each locus
+// of its chromosome within the window of g, duplicates included. An I op whose
+// bases lie past the record's SEQ makes no hit: no other record's bytes are
+// read. The launch is short (a few thousand records that reach a locus, a few
+// hundred I and D ops, tens of hits), so its time is the launch and its
+// slowest thread's chain of dependent loads; the design shortens both:
+//
+// - one device operation a launch: the hit count lives in an 8-byte scratch
+//   word the caller zeroes once (with a 4-byte count of finished blocks
+//   beside it), not in a memset before each launch. An I or D op's hits
+//   claim their slots together with one 64-bit atomic on it (an atomic a hit
+//   queued 121,095 atomics on that one word at 200,000 loci); the last block
+//   to finish (a fence, then a ticket on the block count) moves the count
+//   into out[0] and zeroes both words, so the next launch on the stream finds
+//   them clean (a CUDA graph of launches too). Each block's first thread
+//   prefetches the scratch into the L2 as it starts. A launch that fails
+//   leaves the words as they were, and the caller raises.
+// - a short chain of loads a record: its key, MAPQ, CIGAR and SEQ offsets
+//   and position are loaded together before any branch on them; the per-
+//   ref_id table (up to kStagedRefs references) and the loci the batch can
+//   reach (up to kStagedLoci) are staged in shared memory by each block while
+//   its first records' loads are in flight; CIGAR words come four at a
+//   time. An I or D op searches its record's loci afresh: a pointer moved
+//   forward from the record's first op (g never decreases along a CIGAR) was
+//   no faster at VcfMerge's launches or at 200,000 loci (PERF.md).
+// - the loci the batch can reach: the host's pre-filter finds each record's
+//   range of loci within its span widened by the window, and the launch takes
+//   [lo_cut, hi_cut), the smallest range of the sorted loci that holds all of
+//   them (a coordinate-sorted batch reaches a few hundred loci); each
+//   record's range of its chromosome's loci is cut to it. Past kStagedLoci
+//   the searches read the loci in global memory.
+//
+// The host reckons the capacity before the launch (the batch's I and D ops
+// times the most loci in any 2 * window + 1 positions); past it the kernel
+// only counts, so the wrapper raises and never drops a hit. The hits come
+// back in one copy with their count; their order is the atomics', and the
+// host counts them into a dict a locus, so no output depends on it.
 //
 // The launchers take raw pointers, sizes and the stream, and return
 // cudaGetLastError() so the caller can raise on a refused launch.
@@ -167,46 +194,111 @@ pileup_records_kernel(const int* __restrict__ pos, const int* __restrict__ keep,
     }
 }
 
-// B1's indel form, a thread a record. seq_off: the records' offsets into
-// their bases (l_seq from its differences); out: int64 [1 + 4 * capacity],
-// the count of hits (cleared before the launch), then each hit's record,
-// locus (in the sorted loci), the op's query offset and its CIGAR word.
+constexpr int kStagedLoci = 4096;   // the most loci a launch stages in shared memory
+constexpr int kStagedRefs = 1024;   // the most references whose table it stages
+
+// The first locus in [lo, hi) at or after x (hi: none), on loci in shared or
+// global memory.
+__device__ __forceinline__ int first_at_or_after(const int* loci, int lo, int hi,
+                                                 long long x) {
+    while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (loci[mid] < x) lo = mid + 1;
+        else hi = mid;
+    }
+    return lo;
+}
+
+// B1's indel form, a thread a record; the blocks walk the records in steps of
+// the grid, a block's threads together, so all of them reach the barrier
+// after the staging. seq_off: the records' offsets into their bases (l_seq
+// from its differences); lo_cut, hi_cut: the range of the sorted loci the
+// records can reach; count, done: the caller's scratch (zero before the
+// launch, zero after it); out: int64 [1 + 4 * capacity], the count of hits
+// (written by the last block), then each hit's record, locus (in the sorted
+// loci), the op's query offset and its CIGAR word.
+template <bool kStageTable, bool kStageLoci>
 __global__ void __launch_bounds__(kThreads)
 pileup_indels_kernel(const int* __restrict__ pos, const int* __restrict__ keep,
                      const unsigned char* __restrict__ mapq,
                      const long long* __restrict__ cigar_off, const unsigned* __restrict__ cigar,
                      const long long* __restrict__ seq_off, int n,
                      const int* __restrict__ loci, const int* __restrict__ table, int n_refs,
-                     int min_mapq, int window, unsigned long long* __restrict__ count,
-                     long long* __restrict__ hits, long long capacity) {
+                     int lo_cut, int hi_cut, int min_mapq, int window,
+                     unsigned long long* __restrict__ count, unsigned* __restrict__ done,
+                     long long* __restrict__ out, long long capacity) {
+    extern __shared__ int staged[];  // the table (kStageTable), then the loci (kStageLoci)
+    int* staged_loci = staged + (kStageTable ? 2 * n_refs : 0);
+    const int* tab = kStageTable ? staged : table;
+    const int* cut = kStageLoci ? staged_loci : loci + lo_cut;  // cut[j]: loci[lo_cut + j]
+    const int first = blockIdx.x * kThreads;
     const int stride = gridDim.x * kThreads;
-    for (int r = blockIdx.x * kThreads + threadIdx.x; r < n; r += stride) {
+    // the scratch into the L2 for the atomics, while the records' loads are issued
+    if (threadIdx.x == 0) asm volatile("prefetch.global.L2 [%0];" ::"l"(count));
+    for (int base = first; base < n; base += stride) {
+        const int r = min(base + static_cast<int>(threadIdx.x), n - 1);
+        // the record's columns, every load issued before a branch on any
         const int key = __ldg(keep + r);
-        if (key < 0 || key >= n_refs) continue;
-        const int lo = __ldg(table + key), hi = __ldg(table + n_refs + key);
-        if (lo >= hi || static_cast<int>(__ldg(mapq + r)) < min_mapq) continue;
+        const int q = __ldg(mapq + r);
         const long long c0 = __ldg(cigar_off + r), c1 = __ldg(cigar_off + r + 1);
         const long long l_seq = __ldg(seq_off + r + 1) - __ldg(seq_off + r);
         long long ref_at = static_cast<long long>(__ldg(pos + r)) + 1, q_at = 0;
-        for (long long c = c0; c < c1; ++c) {
-            const unsigned w = __ldg(cigar + c);
-            const unsigned op = w & 0xF;
-            const long long len = w >> 4;
+        if (base == first) {  // once a block, while those loads are in flight
+            if (kStageTable)
+                for (int i = threadIdx.x; i < 2 * n_refs; i += kThreads)
+                    staged[i] = __ldg(table + i);
+            if (kStageLoci)
+                for (int i = threadIdx.x; i < hi_cut - lo_cut; i += kThreads)
+                    staged_loci[i] = __ldg(loci + lo_cut + i);
+            __syncthreads();
+        }
+        if (base + static_cast<int>(threadIdx.x) >= n || key < 0 || key >= n_refs ||
+            q < min_mapq)
+            continue;
+        const int lo = max(tab[key], lo_cut) - lo_cut;
+        const int hi = min(tab[n_refs + key], hi_cut) - lo_cut;
+        if (lo >= hi) continue;
+        auto visit = [&](unsigned word) {
+            const unsigned op = word & 0xF;  // 15 past the CIGAR: consumes nothing
+            const long long len = word >> 4;
             if (op == kDeletion || (op == kInsertion && q_at + len <= l_seq)) {
-                int j = lower_bound(loci, lo, hi, ref_at - window);
-                for (; j < hi && __ldg(loci + j) <= ref_at + window; ++j) {
-                    const unsigned long long slot = atomicAdd(count, 1ULL);
-                    if (slot < static_cast<unsigned long long>(capacity)) {
-                        long long* h = hits + 4 * slot;
+                const int j = first_at_or_after(cut, lo, hi, ref_at - window);
+                int end = j;
+                while (end < hi && cut[end] <= ref_at + window) ++end;
+                if (end > j) {  // the op's hits: one atomic claims their slots
+                    unsigned long long slot =
+                        atomicAdd(count, static_cast<unsigned long long>(end - j));
+                    for (int t = j; t < end && slot < static_cast<unsigned long long>(capacity);
+                         ++t, ++slot) {
+                        long long* h = out + 1 + 4 * slot;
                         h[0] = r;
-                        h[1] = j;
+                        h[1] = lo_cut + t;
                         h[2] = q_at;
-                        h[3] = static_cast<long long>(w);
+                        h[3] = static_cast<long long>(word);
                     }
                 }
             }
             if ((kRefOps >> op) & 1) ref_at += len;
             if ((kQueryOps >> op) & 1) q_at += len;
+        };
+        for (long long c = c0; c < c1; c += 4) {  // four words in flight
+            const unsigned w0 = __ldg(cigar + c);
+            const unsigned w1 = c + 1 < c1 ? __ldg(cigar + c + 1) : 0xFu;
+            const unsigned w2 = c + 2 < c1 ? __ldg(cigar + c + 2) : 0xFu;
+            const unsigned w3 = c + 3 < c1 ? __ldg(cigar + c + 3) : 0xFu;
+            visit(w0);
+            visit(w1);
+            visit(w2);
+            visit(w3);
+        }
+    }
+    // the last block to finish: the count into out[0], the scratch cleared
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        __threadfence();
+        if (atomicAdd(done, 1u) == gridDim.x - 1) {
+            out[0] = static_cast<long long>(atomicExch(count, 0ULL));
+            atomicExch(done, 0u);
         }
     }
 }
@@ -244,25 +336,35 @@ int ngs_pileup_add_records(const void* pos, const void* keep, const void* mapq,
 }
 
 // B1's indel form: records [0, n); loci int32 [n_loci]; table int32
-// [2, n_refs]; out int64 [1 + 4 * capacity]: its count is cleared here, on
-// the stream, before the kernel.
+// [2, n_refs]; [lo_cut, hi_cut) within [0, n_loci]: the loci the records can
+// reach; out int64 [1 + 4 * capacity]; scratch: 16 bytes, zero before the
+// first launch, left zero by each (one launch at a time on a scratch).
 int ngs_pileup_indels(const void* pos, const void* keep, const void* mapq,
                       const void* cigar_off, const void* cigar, const void* seq_off, int n,
-                      const void* loci, int n_loci, const void* table, int n_refs,
-                      int min_mapq, int window, void* out, long long capacity, void* stream) {
-    if (n < 0 || n_loci < 0 || n_refs < 0 || window < 0 || capacity < 0)
+                      const void* loci, int n_loci, const void* table, int n_refs, int lo_cut,
+                      int hi_cut, int min_mapq, int window, void* out, long long capacity,
+                      void* scratch, void* stream) {
+    if (n < 0 || n_loci < 0 || n_refs < 0 || window < 0 || capacity < 0 || lo_cut < 0 ||
+        lo_cut > hi_cut || hi_cut > n_loci || scratch == nullptr)
         return static_cast<int>(cudaErrorInvalidValue);
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    cudaError_t err = cudaMemsetAsync(out, 0, sizeof(long long), s);
-    if (err != cudaSuccess) return static_cast<int>(err);
     if (n == 0 || n_loci == 0 || n_refs == 0) return static_cast<int>(cudaSuccess);
-    pileup_indels_kernel<<<grid_for(n), kThreads, 0, s>>>(
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const bool stage_table = n_refs <= kStagedRefs;
+    const bool stage_loci = hi_cut - lo_cut <= kStagedLoci;
+    const size_t shared =
+        sizeof(int) * ((stage_table ? 2 * n_refs : 0) + (stage_loci ? hi_cut - lo_cut : 0));
+    auto* count = static_cast<unsigned long long*>(scratch);
+    auto* done = reinterpret_cast<unsigned*>(count + 1);
+    auto kernel = stage_table ? (stage_loci ? pileup_indels_kernel<true, true>
+                                            : pileup_indels_kernel<true, false>)
+                              : (stage_loci ? pileup_indels_kernel<false, true>
+                                            : pileup_indels_kernel<false, false>);
+    kernel<<<grid_for(n), kThreads, shared, s>>>(
         static_cast<const int*>(pos), static_cast<const int*>(keep),
         static_cast<const unsigned char*>(mapq), static_cast<const long long*>(cigar_off),
         static_cast<const unsigned*>(cigar), static_cast<const long long*>(seq_off), n,
-        static_cast<const int*>(loci), static_cast<const int*>(table), n_refs, min_mapq,
-        window, static_cast<unsigned long long*>(out), static_cast<long long*>(out) + 1,
-        capacity);
+        static_cast<const int*>(loci), static_cast<const int*>(table), n_refs, lo_cut, hi_cut,
+        min_mapq, window, count, done, static_cast<long long*>(out), capacity);
     return static_cast<int>(cudaGetLastError());
 }
 

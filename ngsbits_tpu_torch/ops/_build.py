@@ -133,7 +133,8 @@ def library() -> ctypes.CDLL:
             lib.ngs_runs_write.argtypes = [p, ll, p, p, i, ll, i, p, i, p, p]
             lib.ngs_pileup_add_records.argtypes = [p, p, p, p, p, p, p, p, i, p, i, p, i, i,
                                                    i, p, p, p, p, p]
-            lib.ngs_pileup_indels.argtypes = [p, p, p, p, p, p, i, p, i, p, i, i, i, p, ll, p]
+            lib.ngs_pileup_indels.argtypes = [p, p, p, p, p, p, i, p, i, p, i, i, i, i, i, p, ll,
+                                              p, p]
             lib.ngs_correlation_moments.argtypes = [p, ll, p, p]
             lib.ngs_correlation_moments_grid.argtypes = [p, ll, p, ll, p]
             for fn in (lib.ngs_readqc_batch, lib.ngs_readqc_unpack,

@@ -42,8 +42,11 @@ exact in any order:
 - B1's indel form ``pileup_indels_into`` (``csrc/pileup.cu``): the same
   uploaded records' I and D ops within a window of the loci, each hit
   (record, locus, query offset, CIGAR word) written into a buffer whose
-  capacity the host reckons before the launch and fetched with its count
-  once a batch, for VcfMerge's re-calling;
+  capacity the host reckons before the launch, its count kept in a scratch
+  word the engine zeroes once; the hits and their count come back in one
+  non-blocking copy a batch (``IndelHits``), which ``DevicePileup``'s
+  caller waits for only after it has launched the next batch, for
+  VcfMerge's re-calling;
 - X7 ``correlation_moments_into`` (``csrc/similarity.cu``): the five exact
   sums sx, sy, sxx, syy and sxy of two vectors of doubled genotypes, for
   ``genotype_moments`` and ``pearson_from_genotypes`` (the JAX package's
@@ -837,6 +840,7 @@ pileup_add_records_into.launches = 0
 # --------------------------------------------------------------------------
 
 INDEL_HIT = 4  # int64 columns of an indel hit: record, locus, query offset, CIGAR word
+INDEL_STAGED_LOCI = 4096  # csrc/pileup.cu's kStagedLoci: past it the loci stay in global memory
 
 
 def _indel_window(window: int) -> int:
@@ -846,7 +850,8 @@ def _indel_window(window: int) -> int:
 
 
 def pileup_indels_plain(rec: Records, loci: torch.Tensor, table: torch.Tensor,
-                        min_mapq: int, window: int) -> torch.Tensor:
+                        min_mapq: int, window: int,
+                        loci_range: tuple[int, int] | None = None) -> torch.Tensor:
     """The hits of B1's indel form one by one, int64 ``[k, 4]``: (record,
     locus, the op's offset in the query, its CIGAR word), in order of
     record, op and locus. A hit is each I or D op of a record with a key
@@ -854,10 +859,14 @@ def pileup_indels_plain(rec: Records, loci: torch.Tensor, table: torch.Tensor,
     within ``window`` of the op's reference position ``g`` (``pos + 1`` plus
     the reference its record consumed before the op): ``|g - locus| <=
     window``. An I op whose bases lie past its record's SEQ has none and
-    makes no hit; a D op needs no bases."""
+    makes no hit; a D op needs no bases. With ``loci_range`` ``(lo, hi)``
+    only the sorted loci ``[lo, hi)`` count (each chromosome's range cut to
+    it)."""
     window = _indel_window(window)
     if loci.shape[0] == 0:
         return torch.zeros((0, INDEL_HIT), dtype=torch.int64, device=loci.device)
+    if loci_range is not None:
+        table = table.clamp(*loci_range)
     r, keys, lo, hi, _, _, (rec_of, op, length, ref_at, q_at) = _pileup_records(rec, loci, table)
     passes = rec.mapq[r].to(torch.int64) >= min(max(int(min_mapq), 0), 256)
     l_seq = (rec.qual_off[r + 1] - rec.qual_off[r])[rec_of]
@@ -874,6 +883,38 @@ def indel_out(capacity: int, device: torch.device) -> torch.Tensor:
     """The output ``pileup_indels_into`` takes for ``capacity`` hits: int64
     ``[1 + 4 * capacity]``, the count of hits, then the hits."""
     return torch.empty(1 + INDEL_HIT * int(capacity), dtype=torch.int64, device=device)
+
+
+def indel_scratch(device: torch.device) -> torch.Tensor:
+    """The scratch ``pileup_indels_into`` keeps its count in on the card:
+    int64 ``[2]``, zero; each launch leaves it zero. One launch at a time
+    on a scratch: an engine keeps its own."""
+    return torch.zeros(2, dtype=torch.int64, device=device)
+
+
+class IndelHits:
+    """One launch's hits of B1's indel form on their way to the host: a
+    pinned copy of the output, filled by a non-blocking copy queued behind
+    the launch, and the CUDA event after the copy (on the CPU route the
+    output itself, no event). ``hits()`` waits for the event, the only wait,
+    then returns the hits, int64 ``[count, 4]`` (a view of the copy), or
+    raises past the capacity."""
+
+    def __init__(self, got: torch.Tensor, capacity: int, event=None):
+        self.got, self.capacity, self.event = got, capacity, event
+
+    def wait(self):
+        if self.event is not None:
+            self.event.synchronize()
+            self.event = None
+
+    def hits(self) -> torch.Tensor:
+        self.wait()
+        count = int(self.got[0])
+        if count > self.capacity:
+            raise RuntimeError(f"pileup_indels: {count} hits past the capacity of "
+                               f"{self.capacity} reckoned before the launch")
+        return self.got[1:1 + INDEL_HIT * count].view(-1, INDEL_HIT)
 
 
 def _indel_args(rec: Records, loci: torch.Tensor, table: torch.Tensor,
@@ -896,22 +937,33 @@ def _indel_args(rec: Records, loci: torch.Tensor, table: torch.Tensor,
     return n_rec, n, n_refs, (out.shape[0] - 1) // INDEL_HIT
 
 
+def _loci_range(loci_range: tuple[int, int] | None, n: int) -> tuple[int, int]:
+    lo, hi = (0, n) if loci_range is None else (int(loci_range[0]), int(loci_range[1]))
+    if not 0 <= lo <= hi <= n:
+        raise ValueError(f"loci range [{lo}, {hi}): it must lie within [0, {n}]")
+    return lo, hi
+
+
 def _pileup_indels_launch(rec: Records, loci: torch.Tensor, table: torch.Tensor,
-                          min_mapq: int, window: int, out: torch.Tensor) -> None:
-    """The indel form's launch on the card alone (its count cleared, then
-    the kernel), without the wrapper's checks, count and fetch: for the
-    device timings, which capture launches in a CUDA graph."""
+                          min_mapq: int, window: int, out: torch.Tensor,
+                          loci_range: tuple[int, int], scratch: torch.Tensor) -> None:
+    """The indel form's launch on the card alone, without the wrapper's
+    checks, count and fetch: for the device timings, which capture launches
+    in a CUDA graph (the scratch is left zero by each)."""
     n_rec, n, n_refs = rec.pos.shape[0], loci.shape[0], table.shape[1]
     rc = _lib().ngs_pileup_indels(
         _ptr(rec.pos), _ptr(rec.keep), _ptr(rec.mapq), _ptr(rec.cigar_off), _ptr(rec.cigar),
-        _ptr(rec.qual_off), n_rec, _ptr(loci), n, _ptr(table), n_refs,
-        min(max(int(min_mapq), 0), 256), window, _ptr(out), (out.shape[0] - 1) // INDEL_HIT,
-        _stream(out))
+        _ptr(rec.qual_off), n_rec, _ptr(loci), n, _ptr(table), n_refs, loci_range[0],
+        loci_range[1], min(max(int(min_mapq), 0), 256), window, _ptr(out),
+        (out.shape[0] - 1) // INDEL_HIT, _ptr(scratch), _stream(out))
     _launched("pileup_indels", rc)
 
 
 def pileup_indels_into(rec: Records, loci: torch.Tensor, table: torch.Tensor,
-                       min_mapq: int, window: int, out: torch.Tensor) -> torch.Tensor:
+                       min_mapq: int, window: int, out: torch.Tensor, *,
+                       loci_range: tuple[int, int] | None = None,
+                       scratch: torch.Tensor | None = None,
+                       wait: bool = True) -> torch.Tensor | IndelHits:
     """B1's indel form, the counterpart of the JAX package's host
     ``indel_pileup_at_positions`` (``ngsbits_tpu/qc/pileup.py:278-364``: a
     Python loop over every I and D op of every selected record, a search of
@@ -920,36 +972,46 @@ def pileup_indels_into(rec: Records, loci: torch.Tensor, table: torch.Tensor,
     ``loci`` and ``table`` as ``pileup_add_records_into`` takes them,
     written into ``out`` (``indel_out``: int64 ``[1 + 4 * capacity]``, the
     count first; on the card in any order) and returned on the host as
-    int64 ``[count, 4]``: one fetch of ``out``. The caller reckons the
-    capacity before the launch (a batch's I and D ops times the most loci
-    within any ``2 * window + 1`` positions); past it the kernel only
-    counts, and this raises on every route."""
+    int64 ``[count, 4]``: one copy of ``out``. ``loci_range`` ``(lo, hi)``:
+    the sorted loci the records can reach (``DevicePileup.reaching``; all
+    of them without it): a narrower range gives the same hits. ``scratch``
+    (``indel_scratch``, on the card): where the launch keeps its count; a
+    fresh one without it. With ``wait=False`` the copy is queued behind the
+    launch and an ``IndelHits`` returned, whose ``hits()`` waits for it. The
+    caller reckons the capacity before the launch (a batch's I and D ops
+    times the most loci within any ``2 * window + 1`` positions); past it
+    the kernel only counts, and the hits raise on every route."""
     window = _indel_window(window)
     tensors = (rec.pos, rec.keep, rec.mapq, rec.cigar_off, rec.cigar, rec.qual_off, loci,
                table, out)
     if any(t is None for t in tensors):
         raise ValueError("the indel pileup needs the records' SEQ offsets and MAPQ")
     n_rec, n, n_refs, capacity = _indel_args(rec, loci, table, out)
+    cut = _loci_range(loci_range, n)
     if _route(*tensors) == "cpu":
-        hits = pileup_indels_plain(rec, loci, table, min_mapq, window)
+        hits = pileup_indels_plain(rec, loci, table, min_mapq, window, cut)
         count = hits.shape[0]
         out[0] = count
         if count <= capacity:
             out[1:1 + INDEL_HIT * count] = hits.flatten()
+        got = IndelHits(out, capacity)
     elif n_rec == 0 or n == 0 or n_refs == 0:
         out[:1].zero_()
-        count, hits = 0, torch.zeros((0, INDEL_HIT), dtype=torch.int64)
+        got = IndelHits(torch.zeros(1, dtype=torch.int64), capacity)
     else:
-        _pileup_indels_launch(rec, loci, table, min_mapq, window, out)
+        if scratch is None:
+            scratch = indel_scratch(out.device)
+        _check("scratch", scratch, torch.int64, (2,))
+        _route(out, scratch)
+        _pileup_indels_launch(rec, loci, table, min_mapq, window, out, cut, scratch)
         with _COUNT_LOCK:
             pileup_indels_into.launches += 1
-        got = out.cpu()  # the count and the hits: one fetch
-        count = int(got[0])
-        hits = got[1:1 + INDEL_HIT * min(count, capacity)].view(-1, INDEL_HIT)
-    if count > capacity:
-        raise RuntimeError(f"pileup_indels: {count} hits past the capacity of {capacity} "
-                           f"reckoned before the launch")
-    return hits
+        host = torch.empty(out.shape, dtype=torch.int64, pin_memory=True)
+        host.copy_(out, non_blocking=True)  # the count and the hits: one copy
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(out.device))
+        got = IndelHits(host, capacity, event)
+    return got.hits() if wait else got
 
 
 pileup_indels_into.launches = 0
@@ -1259,9 +1321,10 @@ class DevicePileup:
     host), ``add`` counts a batch's records at once, ``finalize`` fetches
     the counters once as int64, in the loci's own order. With
     ``indel_window`` ``add`` also finds the I and D ops within that many
-    bases of a locus (B1's indel form) on the same upload and returns them,
-    one fetch a batch; without ``count_bases`` it launches only that
-    form."""
+    bases of a locus (B1's indel form) on the same upload and returns them
+    on their way to the host (``IndelHits``: one copy a batch, waited for
+    by whoever asks for its hits); without ``count_bases`` it launches only
+    that form."""
 
     def __init__(self, chr_nums: np.ndarray, positions: np.ndarray, ref_nums: np.ndarray,
                  track_mapq0: bool = False, device: torch.device | None = None,
@@ -1296,6 +1359,9 @@ class DevicePileup:
             key = (s_chr - s_chr.min()) * (1 << 34) + self._host_loci + (1 << 31)
             self.indel_depth = int((np.searchsorted(key, key + 2 * self.indel_window, "right")
                                     - np.arange(n)).max())
+        # the indel form's count, zeroed once: each launch leaves it zero
+        self.scratch = (None if self.indel_window is None
+                        else indel_scratch(self.device))
         self.out = torch.zeros((7 if track_mapq0 else 5) * n, dtype=torch.int32,
                                device=self.device)
         self.counts = self.out[:4 * n].view(n, 4)
@@ -1303,19 +1369,23 @@ class DevicePileup:
         self.mapped = self.out[5 * n:6 * n] if track_mapq0 else None
         self.mapq0 = self.out[6 * n:] if track_mapq0 else None
 
-    def reaching(self, pos: np.ndarray, ends: np.ndarray, keys: np.ndarray) -> np.ndarray:
+    def reaching(self, pos: np.ndarray, ends: np.ndarray,
+                 keys: np.ndarray) -> tuple[np.ndarray, tuple[int, int]]:
         """The host's pre-filter: which records' reference spans (0-based
         ``pos`` to the 1-based inclusive ``ends``) hold a locus of their
-        key's chromosome, by two searches a chromosome in the batch. Only
-        these need to go up: the others count nowhere. With an indel window
-        ``w`` the span is ``[pos + 1 - w, ends + 1 + w]``: an I op after a
-        record's last aligned base lies at ``ends + 1``. B1 counts bases,
-        deletions and reads over a locus on the record's own span, so a
-        record that only the widening keeps counts nothing there."""
+        key's chromosome, by two searches a chromosome in the batch, and
+        ``(lo, hi)``, the smallest range of the sorted loci that holds every
+        locus in those spans (``(0, 0)``: none). Only these records need to
+        go up: the others count nowhere. With an indel window ``w`` the span
+        is ``[pos + 1 - w, ends + 1 + w]``: an I op after a record's last
+        aligned base lies at ``ends + 1``. B1 counts bases, deletions and
+        reads over a locus on the record's own span, so a record that only
+        the widening keeps counts nothing there."""
         loci, table = self._host_loci, self._host_table
         w = self.indel_window
         lo_pad, hi_pad = (0, 0) if w is None else (w, w + 1)
         reach = np.zeros(len(keys), dtype=bool)
+        cut_lo, cut_hi = self.n, 0
         kept = np.flatnonzero((keys >= 0) & (keys < table.shape[1]))
         for ref in np.unique(keys[kept]):
             lo, hi = table[:, ref]
@@ -1323,26 +1393,31 @@ class DevicePileup:
                 rr = kept[keys[kept] == ref]
                 a = np.searchsorted(loci[lo:hi], pos[rr].astype(np.int64) + 1 - lo_pad, "left")
                 b = np.searchsorted(loci[lo:hi], ends[rr].astype(np.int64) + hi_pad, "right")
-                reach[rr[b > a]] = True
-        return reach
+                some = b > a
+                reach[rr[some]] = True
+                if some.any():
+                    cut_lo = min(cut_lo, int(lo + a[some].min()))
+                    cut_hi = max(cut_hi, int(lo + b[some].max()))
+        return reach, ((cut_lo, cut_hi) if cut_lo < cut_hi else (0, 0))
 
-    def add(self, rec: Records, min_mapq: int, min_baseq: int,
-            indel_ops: int = 0) -> torch.Tensor | None:
+    def add(self, rec: Records, min_mapq: int, min_baseq: int, indel_ops: int = 0,
+            loci_range: tuple[int, int] | None = None) -> IndelHits | None:
         """Counts one batch's records (``pileup_add_records_into``); with
-        an indel window also finds their hits (``pileup_indels_into``, its
-        capacity ``indel_ops``, the batch's I and D ops, times
-        ``indel_depth``; no launch without an I or D op) and returns them on
-        the host, int64 ``[count, 4]`` (else None)."""
+        an indel window also launches their indel form
+        (``pileup_indels_into`` on the engine's scratch, its capacity
+        ``indel_ops``, the batch's I and D ops, times ``indel_depth``, at
+        the loci ``loci_range`` from ``reaching``; no launch without an I or
+        D op) and returns its hits on their way to the host, without a wait
+        (else None)."""
         if self.count_bases:
             pileup_add_records_into(rec, self.loci, self.table, min_mapq, min_baseq,
                                     self.counts, self.dels, self.mapped, self.mapq0)
-        if self.indel_window is None:
-            return None
         capacity = indel_ops * self.indel_depth
-        if capacity == 0:
-            return torch.zeros((0, INDEL_HIT), dtype=torch.int64)
+        if self.indel_window is None or capacity == 0:
+            return None
         return pileup_indels_into(rec, self.loci, self.table, min_mapq, self.indel_window,
-                                  indel_out(capacity, self.device))
+                                  indel_out(capacity, self.device), loci_range=loci_range,
+                                  scratch=self.scratch, wait=False)
 
     def finalize(self) -> dict[str, np.ndarray]:
         """int64 ``counts [n, 4]``, ``dels``, and with ``track_mapq0``

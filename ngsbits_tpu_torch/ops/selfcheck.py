@@ -23,7 +23,9 @@ every CIGAR op, bases and MAPQ); ``pileup_case`` the contamination
 pileup's B1 record form, on those records at ``pileup_loci``
 (``pileup_edge_case``: at ``PILEUP_EDGES`` with ``PILEUP_PARAMS``);
 ``pileup_indels_case`` its indel form (VcfMerge's re-calling), on those
-records at ``indel_loci`` (``pileup_indel_edge_case``: at ``INDEL_EDGES``);
+records at ``indel_loci`` (``indel_edge_inputs`` and
+``pileup_indel_edge_case``: at ``INDEL_EDGES``, at the loci range the host's
+pre-filter finds from ``record_ends``);
 ``correlation_moments_case`` the similarity's X7, on ``genotype_rows``
 (with a grid: on that many blocks, ``correlation_moments_on_grid``, through
 the library's test entry); ``genotype_overlaps`` and ``f10_overlaps`` the
@@ -1067,17 +1069,22 @@ def sorted_hits(hits: torch.Tensor) -> torch.Tensor:
 
 
 def pileup_indels_case(rec: dr.Records, loci: torch.Tensor, table: torch.Tensor,
-                       min_mapq: int, window: int, capacity: int) -> Case:
+                       min_mapq: int, window: int, capacity: int,
+                       loci_range: tuple[int, int] | None = None) -> Case:
     """B1's indel form finding a batch's I and D ops within ``window`` of
-    ``loci`` into an output of ``capacity`` hits (``indel_capacity``); the
-    outputs compared are both versions' hits sorted. Bytes, a floor of what
-    the kernel must read and write once: 16 a record (its position, key,
-    MAPQ and CIGAR offset), the loci and the table, the CIGAR words of the
-    records whose key has loci and whose MAPQ passes, one more offset a
+    ``loci`` into an output of ``capacity`` hits (``indel_capacity``), at
+    the loci ``loci_range`` (``DevicePileup.reaching``'s; all without it)
+    and on a scratch of its own; the outputs compared are the kernel's hits
+    and the plain version's over every locus, both sorted. Bytes, a floor
+    of what the kernel must read and write once: 16 a record (its position,
+    key, MAPQ and CIGAR offset), the loci and the table, the CIGAR words of
+    the records whose key has loci and whose MAPQ passes, one more offset a
     record with an I op (its SEQ's end), and 32 a hit and the count
     written. Operations: a compare a CIGAR word of those records and a
     locus a hit."""
     out = dr.indel_out(capacity, loci.device)
+    scratch = dr.indel_scratch(loci.device)
+    cut = (0, loci.shape[0]) if loci_range is None else loci_range
     got: dict = {}
     r, _, _, _, _, _, (rec_of, op, _, _, _) = dr._pileup_records(rec, loci, table)
     passes = (rec.mapq[r].to(torch.int64) >= min(max(int(min_mapq), 0), 256))[rec_of]
@@ -1088,7 +1095,8 @@ def pileup_indels_case(rec: dr.Records, loci: torch.Tensor, table: torch.Tensor,
               + 8 * with_ins + 32 * hits + 8)
 
     def kernel():
-        got["kernel"] = dr.pileup_indels_into(rec, loci, table, min_mapq, window, out)
+        got["kernel"] = dr.pileup_indels_into(rec, loci, table, min_mapq, window, out,
+                                              loci_range=cut, scratch=scratch)
 
     def plain():
         got["plain"] = dr.pileup_indels_plain(rec, loci, table, min_mapq, window)
@@ -1097,38 +1105,73 @@ def pileup_indels_case(rec: dr.Records, loci: torch.Tensor, table: torch.Tensor,
                 lambda: ([sorted_hits(got["kernel"])], [sorted_hits(got["plain"])]),
                 bytes=nbytes, ops=words + hits,
                 device_fn=lambda: dr._pileup_indels_launch(rec, loci, table, min_mapq,
-                                                           window, out))
+                                                           window, out, cut, scratch))
+
+
+def record_ends(cols: dict) -> np.ndarray:
+    """Each record's 1-based inclusive reference end (``BamBatch.
+    end_positions``) of ``alignment_records``' columns."""
+    op, length = cols["cigar"] & 0xF, (cols["cigar"] >> 4).astype(np.int64)
+    rec_of = np.repeat(np.arange(len(cols["pos"])), np.diff(cols["cigar_off"]))
+    ref_len = np.bincount(rec_of, weights=length * np.isin(op, [0, 2, 3, 7, 8]),
+                          minlength=len(cols["pos"])).astype(np.int64)
+    return cols["pos"].astype(np.int64) + ref_len
 
 
 # B1's indel form at its edges: alignment_records' arguments (every CIGAR op,
 # so I and D ops first and last in records, records without SEQ, MAPQ 0 and
-# flags the filter drops), with the window and MAPQ cut of each case
+# flags the filter drops), the window and MAPQ cut of each case, and its loci:
+# indel_loci's n (300 by default) on its n_refs chromosomes (all but the
+# records' last by default) and ``far`` more on chromosome 2 past the
+# records' reach, so that chromosome's range of the loci the batch reaches is
+# empty. The loci a launch reaches are staged in shared memory up to
+# dr.INDEL_STAGED_LOCI and searched in global memory past it (200,000 loci).
 INDEL_EDGES = {
-    "sorted, window 0": (dict(n=4000, seed=61, width=20_000, n_refs=3), 0, 1),
-    "unsorted, window 1": (dict(n=4000, seed=62, width=20_000, n_refs=3, ordered=False), 1, 1),
+    "sorted, window 0": (dict(n=4000, seed=61, width=20_000, n_refs=3), 0, 1, {}),
+    "unsorted, window 1": (dict(n=4000, seed=62, width=20_000, n_refs=3, ordered=False), 1, 1,
+                           {}),
     "a pile, window 1, min_mapq 20": (dict(n=3000, seed=63, start=5000, width=60, n_refs=2),
-                                      1, 20),
-    "window 3, min_mapq 0": (dict(n=4000, seed=64, width=20_000, n_refs=3), 3, 0),
+                                      1, 20, {}),
+    "window 3, min_mapq 0": (dict(n=4000, seed=64, width=20_000, n_refs=3), 3, 0, {}),
+    "200,000 loci on one chromosome, in global memory": (
+        dict(n=4000, seed=65, width=20_000, n_refs=2), 1, 1, dict(n=100_000, n_refs=1)),
+    "a chromosome whose reached range is empty": (
+        dict(n=4000, seed=66, width=20_000, n_refs=3), 1, 1, dict(n_refs=1, far=300)),
 }
 
 
-def pileup_indel_edge_case(label: str, device: torch.device) -> Case:
-    """B1's indel form on ``INDEL_EDGES[label]``'s records at 300 random
-    loci, 300 at the window's edges and middle around I and D ops and 60
-    repeated, on all but the last chromosome, the filter's keys with not
-    properly paired records kept."""
-    args, window, min_mapq = INDEL_EDGES[label]
+def indel_edge_inputs(label: str, device: torch.device):
+    """``INDEL_EDGES[label]``'s batch on ``device`` as the sweep hands it to
+    B1's indel form: (records, the engine, min_mapq, window, capacity, the
+    loci range ``DevicePileup.reaching`` finds), the filter's keys with not
+    properly paired records kept, every record up."""
+    args, window, min_mapq, at = INDEL_EDGES[label]
     cols = alignment_records(**args)
     n_refs = args.get("n_refs", 1)
-    chrs, pos = indel_loci(cols, 300, seed=args["seed"], n_refs=max(n_refs - 1, 1),
-                           window=window, duplicates=60)
+    chrs, pos = indel_loci(cols, at.get("n", 300), seed=args["seed"],
+                           n_refs=at.get("n_refs", max(n_refs - 1, 1)), window=window,
+                           duplicates=60)
+    if at.get("far"):
+        beyond = int(cols["pos"].max()) + 10_000 + window
+        chrs = np.concatenate([chrs, np.full(at["far"], 2)])
+        pos = np.concatenate([pos, beyond + np.arange(at["far"]) * 3])
     engine = dr.DevicePileup(chrs, pos, np.arange(1, n_refs + 1), device=device,
                              indel_window=window, count_bases=False)
-    rec = dr.upload_records(cols["pos"], pileup_keys(cols, True), cols["cigar_off"],
-                            cols["cigar"], cols["seq_off"], cols["qual"], seq=cols["seq"],
-                            mapq=cols["mapq"], device=device)
-    return pileup_indels_case(rec, engine.loci, engine.table, min_mapq, window,
-                              indel_capacity(rec, chrs, pos, window))
+    keys = pileup_keys(cols, True)
+    _, loci_range = engine.reaching(cols["pos"], record_ends(cols), keys)
+    rec = dr.upload_records(cols["pos"], keys, cols["cigar_off"], cols["cigar"],
+                            cols["seq_off"], cols["qual"], seq=cols["seq"], mapq=cols["mapq"],
+                            device=device)
+    return rec, engine, min_mapq, window, indel_capacity(rec, chrs, pos, window), loci_range
+
+
+def pileup_indel_edge_case(label: str, device: torch.device) -> Case:
+    """B1's indel form on ``INDEL_EDGES[label]``'s records at their loci:
+    random, at the window's edges and middle around I and D ops and 60
+    repeated, at the loci range the pre-filter finds."""
+    rec, engine, min_mapq, window, capacity, loci_range = indel_edge_inputs(label, device)
+    return pileup_indels_case(rec, engine.loci, engine.table, min_mapq, window, capacity,
+                              loci_range)
 
 
 def pileup_indices(n_snps: int, n: int, seed: int = 0, hot: int = 0):

@@ -24,13 +24,16 @@ a reference (``ref_id`` -1) counts nowhere.
 The indels (``indel_window``, and ``indel_pileup_at_positions``, which asks
 for nothing else) come from the same sweep and the same upload: B1's indel
 form (``pileup_indels_into``) finds each I and D op within the window of a
-locus on the card and hands back its (record, locus, query offset, CIGAR
-word), one fetch a batch; the host keys each hit from its own copy of the
-batch, ``+`` and the inserted bases or ``-`` and the deleted length, and
-counts it into the locus' dict. The JAX package sweeps the BAM twice for the
-two (VcfMerge's re-calling) and loops over every I and D op in Python. The
-pre-filter then keeps a record whose span, widened by the window on each
-side and one more base on the right, holds a locus. An insertion whose bases
+locus on the card, at the loci the pre-filter found the batch can reach,
+and hands back its (record, locus, query offset, CIGAR word) in one
+non-blocking copy a batch; the host waits for a batch's copy only after it
+has launched the next batch (or at the end of the sweep), then keys each hit
+from its own copy of that batch, kept until then, ``+`` and the inserted
+bases or ``-`` and the deleted length, and counts it into the locus' dict.
+The JAX package sweeps the BAM twice for the two (VcfMerge's re-calling)
+and loops over every I and D op in Python. The pre-filter then keeps a
+record whose span, widened by the window on each side and one more base on
+the right, holds a locus. An insertion whose bases
 lie past its record's SEQ counts nowhere, where the JAX package keys it with
 the next record's bases (``ROADMAP.md`` F11); a deletion needs no bases.
 
@@ -124,7 +127,8 @@ def pileup_at_positions(bam_file: str, chr_nums: np.ndarray, positions: np.ndarr
     ``count_fragments``: no caller asks for both). ``stats`` (optional)
     gains the host seconds of the sweep (``sweep``: decode wait, filter,
     upload, the indels' keys) and of the engine's launches and fetches
-    (``fetch``: the indel form's fetch each batch, the counters' once).
+    (``fetch``: the launches, the waits for the indel form's copies, the
+    counters' fetch once).
     """
     if indel_window is not None and count_fragments:
         raise ValueError("the indel pileup does not count fragments")
@@ -176,9 +180,20 @@ def _sweep(bam_file: str, chr_nums: np.ndarray, positions: np.ndarray,
                           device="cpu" if count_fragments else None,
                           indel_window=indel_window, count_bases=count_bases)
     frag_best: dict = {}
+    pending = None  # the last indel launch's batch and hits, keyed after the next launch
+
+    def key_indels():
+        nonlocal in_engine
+        held, got = pending
+        t = time.perf_counter()
+        hits = got.hits()  # the copy was queued a launch ago: no wait on the newest batch
+        in_engine += time.perf_counter() - t
+        if hits.shape[0]:
+            _count_indels(held, hits.numpy(), engine.order, result.indels)
+
     for batch in prefetch(reader, depth=2):
         keys = record_keys(batch, include_not_properly_paired)
-        reach = engine.reaching(batch.pos, batch.end_positions(), keys)
+        reach, loci_range = engine.reaching(batch.pos, batch.end_positions(), keys)
         if not reach.all():  # only the records that reach a locus go up
             if not reach.any():
                 continue
@@ -191,11 +206,16 @@ def _sweep(bam_file: str, chr_nums: np.ndarray, positions: np.ndarray,
             if not track_mapq0:
                 continue
         t1 = time.perf_counter()
-        hits = engine.add(rec, min_mapq, min_baseq,
-                          count_indel_ops(batch.cigar) if indel_window is not None else 0)
+        got = engine.add(rec, min_mapq, min_baseq,
+                         count_indel_ops(batch.cigar) if indel_window is not None else 0,
+                         loci_range)
         in_engine += time.perf_counter() - t1
-        if hits is not None and hits.shape[0]:
-            _count_indels(batch, hits.numpy(), engine.order, result.indels)
+        if got is not None:
+            if pending is not None:
+                key_indels()
+            pending = (batch, got)
+    if pending is not None:
+        key_indels()
     if own_reader:  # the prefetch thread has finished with it
         reader.close()
     t1 = time.perf_counter()

@@ -124,7 +124,11 @@ if hasattr(pileup, 'upload_records'):
     pileup.upload_records = timed('upload', pileup.upload_records, count=uploaded)
 if hasattr(dr, 'DevicePileup'):
     if route == 'every record':  # no pre-filter: every record of a batch goes up
-        dr.DevicePileup.reaching = lambda self, pos, ends, keys: np.ones(len(keys), dtype=bool)
+        if hasattr(dr, 'IndelHits'):  # since the indel form's loci range: (mask, range)
+            dr.DevicePileup.reaching = lambda self, pos, ends, keys: (
+                np.ones(len(keys), dtype=bool), (0, self.n))
+        else:
+            dr.DevicePileup.reaching = lambda self, pos, ends, keys: np.ones(len(keys), dtype=bool)
         bam_mod.BamBatch.end_positions = lambda self: self.pos
     dr.DevicePileup.reaching = timed('upload', dr.DevicePileup.reaching)
 

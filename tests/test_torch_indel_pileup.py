@@ -325,8 +325,8 @@ def test_each_batch_launches_the_indel_form_once_and_the_indels_alone_no_b1(bam,
     monkeypatch.setattr(dr, "pileup_add_records_into",
                         lambda rec, *a: b1.append(rec.pos.shape[0]) or real_b1(rec, *a))
     monkeypatch.setattr(dr, "pileup_indels_into",
-                        lambda rec, loci, table, mq, w, out: indel.append(out.shape[0])
-                        or real_indel(rec, loci, table, mq, w, out))
+                        lambda rec, loci, table, mq, w, out, **kw: indel.append(out.shape[0])
+                        or real_indel(rec, loci, table, mq, w, out, **kw))
     port_pileup.indel_pileup_at_positions(str(path), chrs, pos)
     assert b1 == [] and len(indel) >= 1
     b1.clear()
@@ -410,3 +410,209 @@ def test_the_wrapper_refuses_what_the_kernel_does_not_take():
                                         indel_window=1)
     with pytest.raises(ValueError, match="indel window"):
         dr.DevicePileup(np.ones(1), np.ones(1), np.array([1]), device="cpu", count_bases=False)
+
+
+# ------------------------------------------------- the sweep's deferred keys
+
+def _batches_over(starts: list[int], seed: int) -> list[dict]:
+    """Sorted batches of seeded records on chr1 and chr2, batch k over
+    ``[starts[k], starts[k] + 20,000)`` (no records without SEQ holding an
+    I op)."""
+    return [_without_seqless_insertions(selfcheck.alignment_records(
+        1500, seed=seed + k, start=s, width=20_000, n_refs=2)) for k, s in enumerate(starts)]
+
+
+def _loci_near(batches: list[dict], which: list[int], seed: int, window: int = 1):
+    chrs, pos = zip(*(selfcheck.indel_loci(batches[k], 200, seed=seed + k, n_refs=2,
+                                           window=window, duplicates=10) for k in which))
+    return np.concatenate(chrs), np.concatenate(pos)
+
+
+LAYOUTS = {  # batches whose records reach loci, of three
+    "the last batch alone": [2],
+    "every batch": [0, 1, 2],
+    "none reached in the middle": [0, 2],
+}
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_deferred_keys_match_the_jax_package(monkeypatch, layout):
+    """Three batches over disjoint ranges, loci near the ops of some: the
+    last launch's hits are keyed at the sweep's end, a batch that reaches
+    no locus launches nothing and keeps the one before it pending; the
+    dicts equal the JAX package's, from one launch a batch with loci."""
+    batches = _batches_over([0, 100_000, 200_000], seed=300)
+    chrs, pos = _loci_near(batches, LAYOUTS[layout], seed=310)
+    _readers(monkeypatch, batches)
+    launched = []
+    real = dr.pileup_indels_into
+    monkeypatch.setattr(dr, "pileup_indels_into",
+                        lambda rec, *a, **kw: launched.append(rec.pos.shape[0])
+                        or real(rec, *a, **kw))
+    want = jax_pileup.indel_pileup_at_positions("", chrs, pos, window=1)
+    got = port_pileup.indel_pileup_at_positions("", chrs, pos, window=1)
+    assert got == want and _total(want) > 50
+    assert len(launched) == len(LAYOUTS[layout])
+
+
+def test_the_sweep_keys_a_batch_after_the_next_launch(monkeypatch):
+    """On the CPU route as on the card: a launch's hits are asked for only
+    once the next batch has been launched, or after the last launch, each
+    launch's once."""
+    batches = _batches_over([0, 100_000, 200_000, 300_000], seed=320)
+    chrs, pos = _loci_near(batches, [0, 1, 3], seed=330)
+    _readers(monkeypatch, batches)
+    events = []
+    add, hits = dr.DevicePileup.add, dr.IndelHits.hits
+
+    def spy_add(self, *a, **kw):
+        got = add(self, *a, **kw)
+        if got is not None:
+            events.append(("launch", got))
+        return got
+
+    def spy_hits(self):
+        events.append(("hits", self))
+        return hits(self)
+
+    monkeypatch.setattr(dr.DevicePileup, "add", spy_add)
+    monkeypatch.setattr(dr.IndelHits, "hits", spy_hits)
+    port_pileup.indel_pileup_at_positions("", chrs, pos, window=1)
+    launches = [h for kind, h in events if kind == "launch"]
+    assert len(launches) == 3
+    assert [kind for kind, _ in events] == ["launch", "launch", "hits", "launch", "hits", "hits"]
+    assert [h for kind, h in events if kind == "hits"] == launches
+
+
+def test_an_over_capacity_batch_mid_sweep_raises_and_keys_no_later_batch(monkeypatch):
+    """The second of three batches is given too small a capacity (one I or
+    D op): the sweep raises on the CPU route once it asks for that batch's
+    hits, after launching the third, whose hits are never keyed; the first
+    batch's were."""
+    batches = _batches_over([0, 100_000, 200_000], seed=340)
+    chrs, pos = _loci_near(batches, [0, 1, 2], seed=350)
+    _readers(monkeypatch, batches)
+    ops, keyed = [], []
+    real_ops, real_key = port_pileup.count_indel_ops, port_pileup._count_indels
+
+    def count_ops(cigar):
+        ops.append(real_ops(cigar))
+        return 1 if len(ops) == 2 else ops[-1]
+
+    monkeypatch.setattr(port_pileup, "count_indel_ops", count_ops)
+    monkeypatch.setattr(port_pileup, "_count_indels", lambda batch, hits, *a:
+                        keyed.append(len(hits)) or real_key(batch, hits, *a))
+    with pytest.raises(RuntimeError, match="capacity"):
+        port_pileup.indel_pileup_at_positions("", chrs, pos, window=1)
+    assert len(ops) == 3 and min(ops) > 1
+    assert len(keyed) == 1 and keyed[0] > 0
+
+
+@pytest.mark.parametrize("hits", [False, True], ids=["no hits", "hits"])
+def test_a_batch_with_indel_ops_and_zero_capacity(hits):
+    """A capacity of 0 on a batch that holds I and D ops: its hits are none
+    where no op lies near a locus, and raise where some do (on the CPU
+    route as on the card; waited for or not)."""
+    rec, eng = _batch_on_cpu(9)
+    assert dr.count_indel_ops(rec.cigar.numpy().view(np.uint32)) > 100
+    loci, table = eng.loci, eng.table
+    if not hits:  # every locus far past the records
+        loci = loci + 1_000_000
+    want = dr.pileup_indels_plain(rec, loci, table, 1, 1).shape[0]
+    assert (want > 0) == hits
+    pending = dr.pileup_indels_into(rec, loci, table, 1, 1, dr.indel_out(0, torch.device("cpu")),
+                                    wait=False)
+    if hits:
+        with pytest.raises(RuntimeError, match="capacity of 0"):
+            pending.hits()
+    else:
+        assert pending.hits().shape == (0, 4)
+
+
+def _loci_with_far(cols: dict, seed: int, window: int):
+    """``indel_loci`` on chr1 and chr2, 300 more on each past the records'
+    reach and 100 on chr3 past it too."""
+    chrs, pos = selfcheck.indel_loci(cols, 300, seed=seed, n_refs=2, window=window,
+                                     duplicates=20)
+    far = int(cols["pos"].max()) + 5_000 + np.arange(300) * 7
+    return (np.concatenate([chrs, np.ones(300, np.int64), np.full(300, 2), np.full(100, 3)]),
+            np.concatenate([pos, far, far, far[:100]]))
+
+
+@pytest.mark.parametrize("ordered", [True, False], ids=["sorted", "unsorted"])
+@pytest.mark.parametrize("window", [0, 1, 3])
+def test_the_reached_loci_range_gives_the_hits_of_every_locus(window, ordered):
+    """``DevicePileup.reaching``'s range of the loci a batch can reach (each
+    record's span widened by the window): the hits at that range, of the
+    plain version and of the wrapper on the CPU route, equal those at every
+    locus, for the whole batch and for the records the sweep sends up; the
+    range leaves out the loci past the records."""
+    cols = selfcheck.alignment_records(3000, seed=360 + window, width=20_000, n_refs=3,
+                                       ordered=ordered)
+    chrs, pos = _loci_with_far(cols, 370 + window, window)
+    eng = dr.DevicePileup(chrs, pos, np.array([1, 2, 3]), device="cpu", indel_window=window,
+                          count_bases=False)
+    keys = selfcheck.pileup_keys(cols, True)
+    reach, (lo, hi) = eng.reaching(cols["pos"], selfcheck.record_ends(cols), keys)
+    assert lo < hi and hi - lo <= eng.n - 400 and reach.any() and not reach.all()
+    sent = _subset(cols, reach)
+    for batch, k in ((cols, keys), (sent, keys[reach])):
+        rec = dr.upload_records(batch["pos"], k, batch["cigar_off"], batch["cigar"],
+                                batch["seq_off"], batch["qual"], seq=batch["seq"],
+                                mapq=batch["mapq"], device="cpu")
+        full = dr.pileup_indels_plain(rec, eng.loci, eng.table, 1, window)
+        cut = dr.pileup_indels_plain(rec, eng.loci, eng.table, 1, window, (lo, hi))
+        capacity = dr.count_indel_ops(batch["cigar"]) * eng.indel_depth
+        got = dr.pileup_indels_into(rec, eng.loci, eng.table, 1, window,
+                                    dr.indel_out(capacity, torch.device("cpu")),
+                                    loci_range=(lo, hi))
+        assert full.shape[0] > 50
+        assert torch.equal(cut, full) and torch.equal(got, full)
+
+
+@pytest.mark.parametrize("label", sorted(selfcheck.INDEL_EDGES))
+def test_indel_edges_at_their_reached_range_equal_every_locus(label):
+    """Each of ``selfcheck.INDEL_EDGES`` on the CPU route at the range its
+    pre-filter finds, against the plain version at every locus; one case
+    reaches more loci than the kernel stages in shared memory, one has a
+    chromosome with loci whose reached range is empty."""
+    rec, eng, mq, window, capacity, (lo, hi) = selfcheck.indel_edge_inputs(
+        label, torch.device("cpu"))
+    case = selfcheck.pileup_indels_case(rec, eng.loci, eng.table, mq, window, capacity, (lo, hi))
+    case.kernel()
+    case.plain()
+    assert selfcheck.max_abs_err(case) == 0 and case.outputs()[0][0].shape[0] > 50
+    table = eng.table.numpy()
+    if "global memory" in label:
+        assert hi - lo > dr.INDEL_STAGED_LOCI
+    else:
+        assert hi - lo <= dr.INDEL_STAGED_LOCI
+    if "empty" in label:  # chromosome 2 has loci, none of them in the range
+        assert table[0, 1] < table[1, 1] and (table[1, 1] <= lo or table[0, 1] >= hi)
+
+
+@pytest.mark.parametrize("length", [2**27, 2**28 - 1])
+def test_a_deletion_of_2_27_bases_or_more_is_keyed_by_its_length(monkeypatch, length):
+    """A D op whose CIGAR word is 2^31 or more (a length of 2^27 or more):
+    the word goes up as int32 and comes back as its unsigned value, keyed
+    ``-LEN`` as the JAX package keys it; an insertion after it counts at
+    its own g."""
+    rec = _record(99, [("M", 10), ("D", length), ("M", 10), ("I", 2), ("M", 5)],
+                  b"ACGTACGTACGTACGTACGTGGACGTA")
+    cols = _columns([rec])
+    assert cols["cigar"][1] >= 2**31
+    g_ins = 100 + 10 + length + 10
+    chrs, pos = np.ones(3, np.int64), np.array([110, 111, g_ins])
+    _readers(monkeypatch, [cols])
+    want = jax_pileup.indel_pileup_at_positions("", chrs, pos, window=1)
+    got = port_pileup.indel_pileup_at_positions("", chrs, pos, window=1)
+    key = b"-%d" % length
+    assert got == want == [{key: 1}, {key: 1}, {b"+GG": 1}]
+
+
+def test_the_wrapper_refuses_a_loci_range_outside_the_loci():
+    rec, eng = _batch_on_cpu(10)
+    out = dr.indel_out(100, torch.device("cpu"))
+    for bad in ((-1, 5), (5, 4), (0, eng.n + 1)):
+        with pytest.raises(ValueError, match="loci range"):
+            dr.pileup_indels_into(rec, eng.loci, eng.table, 1, 1, out, loci_range=bad)

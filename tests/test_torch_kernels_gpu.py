@@ -38,8 +38,11 @@ and 30, several batches into one difference array against the CPU; B1's
 record form (the contamination pileup) at ``selfcheck.PILEUP_EDGES`` with
 each of ``PILEUP_PARAMS``, several batches into one ``DevicePileup``
 against the CPU, and the wrapper's refusals; B1's indel form (VcfMerge's
-re-calling) at ``selfcheck.INDEL_EDGES``, both sweeps on the card against
-the CPU over a BAM with germline indels, and its refusals; X7 (the similarity's moments)
+re-calling) at ``selfcheck.INDEL_EDGES`` (its reached loci in shared memory,
+200,000 of them in global memory, a chromosome whose reached range is
+empty), both sweeps on the card against the CPU over a BAM with germline
+indels, VcfMerge's sweep never waiting on the batch it has just launched,
+and its refusals; X7 (the similarity's moments)
 at the kernels phase's shapes (n = 1, off its 16-byte steps, a constant row,
 n = 2^29 + 7 past int32, an exome's and a WGS VCF pair's overlap), at rows
 off 16-byte boundaries, its refusals and ``pearson_from_genotypes`` against
@@ -1626,12 +1629,81 @@ def test_pileup_indels_refuses_what_the_kernel_does_not_take():
         dr.pileup_indels_into(rec, loci.cpu(), table, 1, 1, out)
     with pytest.raises(ValueError, match="window"):
         dr.pileup_indels_into(rec, loci, table, 1, -1, out)
+    with pytest.raises(ValueError, match="loci range"):
+        dr.pileup_indels_into(rec, loci, table, 1, 1, out, loci_range=(0, loci.shape[0] + 1))
+    with pytest.raises(TypeError):
+        dr.pileup_indels_into(rec, loci, table, 1, 1, out,
+                              scratch=torch.zeros(2, dtype=torch.int32, device="cuda"))
+    with pytest.raises(ValueError, match="devices"):
+        dr.pileup_indels_into(rec, loci, table, 1, 1, out,
+                              scratch=torch.zeros(2, dtype=torch.int64))
     assert dr.pileup_indels_into.launches == before
     hits = dr.pileup_indels_plain(rec, loci, table, 1, 1).shape[0]
     assert hits > 10
     with pytest.raises(RuntimeError, match="capacity"):
         dr.pileup_indels_into(rec, loci, table, 1, 1, dr.indel_out(hits - 1, torch.device("cuda")))
     assert dr.pileup_indels_into.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_the_sweep_never_waits_on_the_batch_it_has_just_launched(tmp_path, monkeypatch):
+    """VcfMerge's sweep (``pileup_at_positions``, window 1, min_mapq 20,
+    min_baseq 0) over a synthetic BAM in batches of 65,536 records: no
+    blocking fetch of a batch's hits while that batch is the newest one
+    launched, but one at the end, after the last launch; each launch's hits
+    fetched once; the same dicts and counts as the CPU route; the indel
+    form's launches are one device operation each (its scratch stays
+    zero)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ngsbits_tpu_torch.ops import device_reduce as dr
+    from ngsbits_tpu_torch.qc import pileup as pm
+    from ngsbits_tpu_torch.utils import synth
+    genome = synth.synth_genome(tmp_path / "g.fa", {"chr1": 3_000_000, "chr2": 2_000_000},
+                                seed=87)
+    roi = synth.synth_roi(tmp_path / "roi.bed", genome, 400, seed=88)
+    trio = synth.trio_variants(genome, roi, 1500, seed=89, indel_share=0.3)
+    synth.synth_bam(tmp_path / "x.bam", genome, 150_000, seed=90, roi=roi, snps=trio.snps(0),
+                    indels=trio.indels(0))
+    chrs = np.concatenate([trio.chrom + 1, trio.chrom + 1])
+    pos = np.concatenate([trio.pos + 1, trio.pos + 2])
+    events, engines = [], []
+    add, wait = dr.DevicePileup.add, dr.IndelHits.wait
+
+    def spy_add(self, *a, **kw):
+        engines.append(self)
+        got = add(self, *a, **kw)
+        if got is not None:
+            events.append(("launch", got))
+        return got
+
+    def spy_wait(self):
+        if self.event is not None:  # a wait on the card, not a second look
+            events.append(("wait", self))
+        wait(self)
+
+    got = {}
+    for dev in ("cpu", "cuda"):
+        monkeypatch.setenv("NGSBITS_TORCH_DEVICE", dev)
+        if dev == "cuda":
+            monkeypatch.setattr(dr.DevicePileup, "add", spy_add)
+            monkeypatch.setattr(dr.IndelHits, "wait", spy_wait)
+        got[dev] = pm.pileup_at_positions(str(tmp_path / "x.bam"), chrs, pos, min_mapq=20,
+                                          min_baseq=0, indel_window=1)
+    launches = [h for kind, h in events if kind == "launch"]
+    assert len(launches) >= 4
+    newest, on_newest = None, []
+    for i, (kind, h) in enumerate(events):
+        if kind == "launch":
+            newest = h
+        elif h is newest:
+            on_newest.append(i)
+    assert on_newest == [len(events) - 1] and events[-1][1] is launches[-1]
+    assert [h for kind, h in events if kind == "wait"] == launches
+    assert got["cuda"].indels == got["cpu"].indels
+    assert sum(sum(d.values()) for d in got["cuda"].indels) > 100
+    np.testing.assert_array_equal(got["cuda"].counts, got["cpu"].counts)
+    assert int(engines[-1].scratch.abs().sum()) == 0
 
 
 def _indel_inputs():
