@@ -56,7 +56,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
             (up to 500 bases), overlapping and repeated regions, regions at
             records' spans and under long N ops, a chromosome the BAM lacks;
             records without SEQ, of no reference span, of MAPQ 0; counters
-            and hits).
+            and hits; about 6,000 reached regions (timed) and a table of
+            1,100 references).
             The coverage tools' C2 (dense mode alone), R1 and R2 at their
             edges (one-base regions, regions at both ends and over the whole
             span, overlapping and repeated (R1) or disjoint (R2), cutoffs of
@@ -229,10 +230,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
             to the JAX package's host route (scripts/jax_host_route.py,
             timed beside). Prints each tool's wall and seconds by stage
             (set-up, details with its sweep and fetch, output; the PRS's
-            details and scoring). Then every launch of the region form held
-            against its plain version on the records it was given (the hits
-            the run got, sorted; not in the runs' times) and the form timed
-            at the launch of median hits. ``--phase annotate`` runs only the
+            details and scoring), the region form's scratch zero after each
+            run. Then every launch of the region form held against its plain
+            version on the records it was given (the hits the run got,
+            sorted; not in the runs' times), and launched again alone: one
+            device operation (its launch captured into a CUDA graph of one
+            node), its scratch left zero, the plain version's counters and
+            hits; the form timed at the launch of median hits, with its
+            wrapper's call (its hits waited for at once, and as the sweep
+            makes it: the hits read after the next call)
+            (``--save-region-launch FILE`` saves its inputs; the callers
+            phase does the same for the indel form's median launch).
+            ``--phase annotate`` runs only the
             kernels and this phase (generating the exome's genome and panel
             and the trio).
 
@@ -625,12 +634,18 @@ def coverage_edges(records: dict, dev: torch.device):
     phase("kernels: B1's region form at its edges (at the main path's inputs after the "
           "annotate phase)")
     for label in selfcheck.REGION_EDGES:
-        case = selfcheck.pileup_region_edge_case(label, dev)
-        _check_equal(case, label)
+        rec, eng, capacity, cut = selfcheck.region_edge_inputs(label, dev)
+        case = selfcheck.pileup_regions_case(rec, eng.regions, eng.table, capacity, cut)
+        if label == "6,000 regions reached":  # timed: the most regions a thread walks
+            _record(records, case, f"{label}: {rec.pos.shape[0]} records, {cut[1] - cut[0]} "
+                    f"regions reached", False, cold=True)
+        else:
+            _check_equal(case, label)
         print(f"pileup_regions   {label}: I and D ops at region edges and at one g, long and "
               f"repeated regions, long N ops, records without SEQ or reference span, MAPQ 0, a "
-              f"chromosome the BAM lacks; {case.outputs()[0][1].shape[0]} hits: counters and "
-              f"hits equal", flush=True)
+              f"chromosome the BAM lacks; {cut[1] - cut[0]} regions reached, a table of "
+              f"{eng.table.shape[1]} references; "
+              f"{case.outputs()[0][1].shape[0]} hits: counters and hits equal", flush=True)
     phase("kernels: the coverage tools' C1 record form, C2 (dense mode), R1 and R2 at "
           "their edges (at the main path's inputs after the coverage phase)")
     rng = np.random.default_rng(27)
@@ -863,6 +878,23 @@ def _median_launch(launches: list, size) -> tuple[int, tuple]:
     order = sorted(range(len(launches)), key=lambda i: size(launches[i]))
     i = order[len(order) // 2]
     return i, launches[i]
+
+
+def _sweep_call_ms(call, calls: int = 200) -> float:
+    """Host milliseconds a call of a B1 form's wrapper as the sweep makes it
+    (``wait=False``: the launch, its copy and event queued, the hits read
+    after the next call), by ``time.perf_counter`` over ``calls`` calls."""
+    for _ in range(3):
+        call().hits()
+    torch.cuda.synchronize()
+    prev, t0 = None, time.perf_counter()
+    for _ in range(calls):
+        got = call()
+        if prev is not None:
+            prev.hits()
+        prev = got
+    prev.hits()
+    return (time.perf_counter() - t0) / calls * 1e3
 
 
 def _flattened(reads: torch.Tensor, regions: torch.Tensor) -> tuple:
@@ -2030,11 +2062,25 @@ def callers(records: dict, save_launch: Path | None = None):
     k, (rec, loci, table, mq, window, capacity, cut, kept) = _median_launch(
         indel_launches, lambda a: a[-1][0].shape[0])
     n_ops = dr.count_indel_ops(rec.cigar.cpu().numpy().view(np.uint32))
-    _record(records, selfcheck.pileup_indels_case(rec, loci, table, mq, window, capacity, cut),
-            f"launch {k} of {len(indel_launches)} (median by hits): {rec.pos.shape[0]} records, "
-            f"{n_ops} I and D ops, {kept[0].shape[0]} hits at {loci.shape[0]} loci "
-            f"({cut[1] - cut[0]} reached), window {window}, min_mapq {mq}, capacity {capacity}",
-            True, cold=True)
+    case = selfcheck.pileup_indels_case(rec, loci, table, mq, window, capacity, cut)
+    got = _record(records, case,
+                  f"launch {k} of {len(indel_launches)} (median by hits): {rec.pos.shape[0]} "
+                  f"records, {n_ops} I and D ops, {kept[0].shape[0]} hits at {loci.shape[0]} "
+                  f"loci ({cut[1] - cut[0]} reached), window {window}, min_mapq {mq}, capacity "
+                  f"{capacity}", True, cold=True)
+    ops = selfcheck.device_ops(case.device_fn, torch.device("cuda"))
+    *_, out, _, scratch, ring = case.inputs
+    sweep_ms = _sweep_call_ms(lambda: dr.pileup_indels_into(
+        rec, loci, table, mq, window, out, loci_range=cut, scratch=scratch, ring=ring,
+        wait=False))
+    if ops != 1 or int(scratch.abs().sum()):
+        raise AssertionError(f"pileup_indels: {ops} device operations a launch, or its scratch "
+                             f"left {scratch.tolist()}")
+    records["pileup_indels"]["sweep_call_ms"] = sweep_ms
+    print(f"pileup_indels    that launch: one device operation, its scratch left zero; the "
+          f"wrapper's call {got['call_ms']:.4f} ms with its hits waited for at once, "
+          f"{sweep_ms:.4f} ms as the sweep makes it (launch, copy and event queued, the hits "
+          f"read after the next call; host clock)", flush=True)
     if save_launch is not None:
         torch.save(dict(rec={f: getattr(rec, f).cpu() for f in rec._fields
                              if getattr(rec, f) is not None},
@@ -2053,18 +2099,21 @@ ANNOTATE_PRS = 2_000  # sites of the PRS VCF
 def _capture_region_launches():
     """Each launch of B1's region form while the block runs, taken where
     ``DeviceRegions.add`` makes it: (records as they went up, regions,
-    table, capacity, a list that gets the hits the sweep fetched, once it
-    waits for them: after the next launch), in launch order; and the number
-    of BAM sweeps (readers opened)."""
+    table, capacity, regions range, a list that gets the hits the sweep
+    fetched, once it waits for them: after the next launch), in launch
+    order; the engines that launched them; and the number of BAM sweeps
+    (readers opened)."""
     from ngsbits_tpu_torch.ops.device_reduce import DeviceRegions
     from ngsbits_tpu_torch.qc import pileup as pm
-    got: dict = {"launches": [], "sweeps": 0}
+    got: dict = {"launches": [], "engines": {}, "sweeps": 0}
     add, reader = DeviceRegions.add, pm.BamReader
 
-    def add_records(self, rec, indel_ops):
-        pending = add(self, rec, indel_ops)
+    def add_records(self, rec, indel_ops, regions_range=None):
+        pending = add(self, rec, indel_ops, regions_range)
         kept: list = []
-        got["launches"].append((rec, self.regions, self.table, pending.capacity, kept))
+        got["launches"].append((rec, self.regions, self.table, pending.capacity, regions_range,
+                                kept))
+        got["engines"][id(self)] = self
         return _KeptHits(pending, kept)
 
     def open_reader(*a, **kw):
@@ -2096,13 +2145,16 @@ def _rebuilt_set_seconds(rows: list[str]) -> float:
     return seconds
 
 
-def annotate(records: dict, inp: dict):
+def annotate(records: dict, inp: dict, save_launch: Path | None = None):
     """VcfAnnotateFrequency, VariantAnnotateFrequency (twice),
     VariantAnnotateASE and VcfCalculatePRS on the card on the callers
     phase's child (its BAM and VCF, the genome and panel), each against the
     JAX package's host route; every launch of B1's region form held against
     its plain version after the runs, on the hits the sweep fetched a
-    launch later."""
+    launch later, and launched again alone (one device operation, its
+    scratch left zero, the counters too). ``save_launch``: where to save the
+    inputs of the launch of median hits (``torch.save``; for
+    ``scripts/region_variants.py --launch``)."""
     import numpy as np
     from ngsbits_tpu_torch.ops import device_reduce as dr
     from ngsbits_tpu_torch.ops import selfcheck
@@ -2163,6 +2215,10 @@ def annotate(records: dict, inp: dict):
                                  f"{launches['pileup_regions']} launches")
         if got["sweeps"] != 1:
             raise AssertionError(f"{label} swept the BAM {got['sweeps']} times, not once")
+        for eng in got["engines"].values():
+            if int(eng.scratch.abs().sum()):
+                raise AssertionError(f"{label}: the region form's scratch was left "
+                                     f"{eng.scratch.tolist()}")
         region_launches += got["launches"]
         for name, count in launches.items():
             if count:
@@ -2191,7 +2247,9 @@ def annotate(records: dict, inp: dict):
 
     phase(f"kernels: B1's region form at the annotate phase's {len(region_launches)} launches")
     t0 = time.perf_counter()
-    for k, (rec, regions, table, capacity, kept) in enumerate(region_launches):
+    dev = torch.device("cuda")
+    scratch, ring = dr.indel_scratch(dev), dr.HitRing()
+    for k, (rec, regions, table, capacity, cut, kept) in enumerate(region_launches):
         if len(kept) != 1:
             raise AssertionError(f"pileup_regions launch {k}: its hits were fetched {len(kept)} "
                                  f"times, not once")
@@ -2202,17 +2260,49 @@ def annotate(records: dict, inp: dict):
         if not torch.equal(selfcheck.sorted_region_hits(kept[0]), want):
             raise AssertionError(f"pileup_regions launch {k}: the run's hits differ from the "
                                  f"plain version's")
+        # launched again alone: one device operation, the scratch left zero, the
+        # plain version's counters and hits
+        again, out = torch.zeros_like(counters), dr.region_out(capacity, dev)
+        ops = selfcheck.device_ops(lambda: dr._pileup_regions_launch(
+            rec, regions, table, again, out, cut, scratch), dev)
+        hits = dr.pileup_regions_into(rec, regions, table, again, out, regions_range=cut,
+                                      scratch=scratch, ring=ring)
+        if ops != 1 or int(scratch.abs().sum()) or not torch.equal(again, counters) or \
+                not torch.equal(selfcheck.sorted_region_hits(hits), want):
+            raise AssertionError(f"pileup_regions launch {k} alone: {ops} device operations, "
+                                 f"its scratch left {scratch.tolist()}, or its counters or hits "
+                                 f"differ from the plain version's")
     n_hits = [kept[0].shape[0] for *_, kept in region_launches]
+    reached = [cut[1] - cut[0] for *_, cut, _ in region_launches]
     print(f"pileup_regions: the hits of each of the {len(region_launches)} launches equal the "
-          f"plain version's ({sum(n_hits)} hits, {min(n_hits)}-{max(n_hits)} a launch; checks "
-          f"{time.perf_counter() - t0:.2f} s, not in the runs' times)", flush=True)
-    k, (rec, regions, table, capacity, kept) = _median_launch(
+          f"plain version's over every region ({sum(n_hits)} hits, {min(n_hits)}-{max(n_hits)} "
+          f"a launch; the launches reached {min(reached)}-{max(reached)} regions, median "
+          f"{int(np.median(reached))}); each launched again alone is "
+          f"one device operation, leaves its scratch zero and gives the plain version's "
+          f"counters and hits (checks {time.perf_counter() - t0:.2f} s, not in the runs' times)",
+          flush=True)
+    k, (rec, regions, table, capacity, cut, kept) = _median_launch(
         region_launches, lambda a: a[-1][0].shape[0])
     n_ops = dr.count_indel_ops(rec.cigar.cpu().numpy().view(np.uint32))
-    _record(records, selfcheck.pileup_regions_case(rec, regions, table, capacity),
-            f"launch {k} of {len(region_launches)} (median by hits): {rec.pos.shape[0]} records, "
-            f"{n_ops} I and D ops, {kept[0].shape[0]} hits at {regions.shape[1]} regions, "
-            f"capacity {capacity}", True, cold=True)
+    case = selfcheck.pileup_regions_case(rec, regions, table, capacity, cut)
+    got = _record(records, case,
+                  f"launch {k} of {len(region_launches)} (median by hits): {rec.pos.shape[0]} "
+                  f"records, {n_ops} I and D ops, {kept[0].shape[0]} hits at {regions.shape[1]} "
+                  f"regions ({cut[1] - cut[0]} reached), capacity {capacity}", True, cold=True)
+    *_, counters, out, _, scratch, ring = case.inputs
+    sweep_ms = _sweep_call_ms(lambda: dr.pileup_regions_into(
+        rec, regions, table, counters, out, regions_range=cut, scratch=scratch, ring=ring,
+        wait=False))
+    records["pileup_regions"]["sweep_call_ms"] = sweep_ms
+    print(f"pileup_regions   the wrapper's call at that launch: {got['call_ms']:.4f} ms with its "
+          f"hits waited for at once, {sweep_ms:.4f} ms as the sweep makes it (launch, copy and "
+          f"event queued, the hits read after the next call; host clock)", flush=True)
+    if save_launch is not None:
+        torch.save(dict(rec={f: getattr(rec, f).cpu() for f in rec._fields
+                             if getattr(rec, f) is not None},
+                        regions=regions.cpu(), table=table.cpu(), capacity=capacity,
+                        regions_range=cut, launch=k, launches=len(region_launches)), save_launch)
+        print(f"saved the median launch's inputs to {save_launch}", flush=True)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -2227,6 +2317,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--save-indel-launch", type=Path, metavar="FILE",
                     help="the callers phase saves the inputs of B1's indel form's launch "
                          "of median hits there (for scripts/indel_variants.py --launch)")
+    ap.add_argument("--save-region-launch", type=Path, metavar="FILE",
+                    help="the annotate phase saves the inputs of B1's region form's launch "
+                         "of median hits there (for scripts/region_variants.py --launch)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2253,7 +2346,7 @@ def main(argv: list[str] | None = None) -> int:
             if args.phase in ("all", "callers"):
                 callers(records, args.save_indel_launch)
             if args.phase in ("all", "annotate"):
-                annotate(records, _callers_inputs())
+                annotate(records, _callers_inputs(), args.save_region_launch)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
     print(json.dumps({"kernels": list(records.values())}))

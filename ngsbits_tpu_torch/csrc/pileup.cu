@@ -101,23 +101,49 @@
 // back in one copy with their count; their order is the atomics', and the
 // host counts them into a dict a locus, so no output depends on it.
 //
-// The region form is a simple thread a record. It sums the record's span
+// The region form also takes a thread a record. It sums the record's span
 // from its CIGAR, searches its chromosome's regions (sorted by start, a
 // per-ref_id [lo, hi) table with the chromosome's longest region beside it)
 // for the first that starts at or after the span's start less that longest
 // region, and walks the regions from there while they start within the span:
 // each that ends at or after the span's start overlaps. It counts the read
 // there (and at MAPQ 0 the MAPQ-0 read, and nothing more); where the record
-// spans the region it walks its CIGAR once more over it: each N op from g at
-// or before the start to g + len at or past the end takes one off the read's
-// depth there, and each I or D op at start <= g <= end claims a slot with one
-// 64-bit atomic on out[0] and writes (record, region, query offset, CIGAR
-// index, g). A batch that reaches the regions holds a few thousand records
-// and a few dozen hits, so the launch is its latency and one thread's chain
-// of loads; the counters (12 bytes a region) stay in the L2. Its bound by
-// bytes: 16 bytes a record, the CIGAR words of records that reach a region,
-// the regions and table, 40 bytes a hit and the counters written once.
-// out[0] is zeroed by a memset before each launch.
+// spans the region it adds 1 to its depth less each N op from g at or before
+// the start to g + len at or past the end, and each I or D op at start <= g
+// <= end claims a slot with one 64-bit atomic and writes (record, region,
+// query offset, CIGAR index, g). A batch that reaches the regions holds a few
+// thousand records and a few hundred hits, so the launch is its latency and
+// one thread's chain of dependent loads; the counters (12 bytes a region)
+// stay in the L2. The design shortens the chain as the indel form's does:
+//
+// - one device operation a launch: the hit count lives in a 64-bit word of
+//   the caller's scratch, zeroed once, with the count of finished blocks in
+//   its top 24 bits. Each block's thread 0 adds its ticket to that word
+//   after the block's barrier, so the word's own order puts every hit of a
+//   block before its ticket: the ticket that finds all other blocks'
+//   returns the whole count, which that block writes into out[0] before it
+//   clears the word. The next launch (or a CUDA graph's replay) finds it
+//   clean; a launch that fails leaves it as it was, and the caller raises.
+//   Unlike the indel form's ticket on a second word, this needs no fence,
+//   which waited for the block's atomics on the counters to drain.
+// - a short chain of loads a record: its key, MAPQ, CIGAR offsets and
+//   position are loaded before any branch on them, the table's three words
+//   together, and each region's start and end together; CIGAR words come
+//   four at a time. The first walk gives the span and whether the record
+//   holds an I, D or N op. A record without one (most 151 bp reads) walks no
+//   further: it adds 1 to the depth of each region it spans and makes no
+//   hit. Only a record with one walks its CIGAR again over each region it
+//   spans, four words at a time, and stops once g is past the region's start
+//   and end. The regions and the table are read in global memory (through
+//   the L1): staging them in shared memory was measured and bought nothing.
+// - the regions the batch can reach: the host's pre-filter finds each
+//   record's range of regions, and the launch takes [lo_cut, hi_cut), the
+//   smallest range of the sorted regions that holds all of them; each
+//   record's range of its chromosome's regions is cut to it.
+//
+// Its bound by bytes: 16 bytes a record, the CIGAR words of records that
+// reach a region, the regions and table, 40 bytes a hit and the counters
+// written once.
 //
 // The launchers take raw pointers, sizes and the stream, and return
 // cudaGetLastError() so the caller can raise on a refused launch.
@@ -331,73 +357,125 @@ pileup_indels_kernel(const int* __restrict__ pos, const int* __restrict__ keep,
     }
 }
 
-// B1's region form, a thread a record. regions: int32 [2, n_regions], 1-based
-// inclusive starts and ends, sorted by start within each reference's range;
-// table: int32 [3, n_refs], each ref_id's range [lo, hi) and its longest
-// region's end - start; counters: int32 [3, n_regions], mapped, mapq0 and
-// depth; out: int64 [1 + 5 * capacity], the count of hits (zero before the
-// launch), then each hit's record, region, the op's query offset, its index
-// in cigar and its 1-based reference position.
+// B1's region form: the ops that make a spanning record walk its CIGAR
+// again (I, D and N); its count word, the hits in the low 40 bits and the
+// finished blocks above them.
+constexpr unsigned kWalkOps = (1u << kInsertion) | (1u << kDeletion) | (1u << kSkip);
+constexpr int kBlockShift = 40;
+constexpr unsigned long long kHitMask = (1ULL << kBlockShift) - 1;
+
+// The reference a CIGAR word consumes (0 past the CIGAR: its word is 0xF).
+__device__ __forceinline__ long long ref_length(unsigned word) {
+    return ((kRefOps >> (word & 0xF)) & 1) ? static_cast<long long>(word >> 4) : 0;
+}
+
+// B1's region form, a thread a record. regions: starts and ends, int32
+// [n_regions] each, 1-based inclusive, sorted by start within each
+// reference's range; table: int32 [3, n_refs], each ref_id's range [lo, hi)
+// and its longest region's end - start; lo_cut, hi_cut: the range of the
+// sorted regions the records can reach; counters: int32 [n_regions] each,
+// mapped, mapq0 and depth; count: the caller's scratch word (zero before
+// the launch, zero after it); out: int64 [1 + 5 * capacity], the count of
+// hits (written by the last block), then each hit's record, region, the
+// op's query offset, its index in cigar and its 1-based reference position.
 __global__ void __launch_bounds__(kThreads)
 pileup_regions_kernel(const int* __restrict__ pos, const int* __restrict__ keep,
                       const unsigned char* __restrict__ mapq,
                       const long long* __restrict__ cigar_off,
                       const unsigned* __restrict__ cigar, int n,
                       const int* __restrict__ starts, const int* __restrict__ ends,
-                      const int* __restrict__ table, int n_refs, int* __restrict__ mapped,
-                      int* __restrict__ mapq0, int* __restrict__ depth,
-                      long long* __restrict__ out, long long capacity) {
-    auto* count = reinterpret_cast<unsigned long long*>(out);
+                      const int* __restrict__ table, int n_refs, int lo_cut, int hi_cut,
+                      int* __restrict__ mapped, int* __restrict__ mapq0, int* __restrict__ depth,
+                      unsigned long long* __restrict__ count, long long* __restrict__ out,
+                      long long capacity) {
+    const int* st = starts + lo_cut;  // st[j], en[j]: region lo_cut + j's start and end
+    const int* en = ends + lo_cut;
     const int stride = gridDim.x * kThreads;
+    // the scratch into the L2 for the atomics, while the records' loads are issued
+    if (threadIdx.x == 0) asm volatile("prefetch.global.L2 [%0];" ::"l"(count));
     for (int r = blockIdx.x * kThreads + threadIdx.x; r < n; r += stride) {
+        // the record's columns, every load issued before a branch on any
         const int key = __ldg(keep + r);
-        if (key < 0 || key >= n_refs) continue;
-        const int lo = __ldg(table + key), hi = __ldg(table + n_refs + key);
-        if (lo >= hi) continue;
-        const long long longest = __ldg(table + 2 * n_refs + key);
-        const long long c0 = __ldg(cigar_off + r), c1 = __ldg(cigar_off + r + 1);
-        long long span = 0;
-        for (long long c = c0; c < c1; ++c) {
-            const unsigned w = __ldg(cigar + c);
-            if ((kRefOps >> (w & 0xF)) & 1) span += w >> 4;
-        }
-        const long long r_start = static_cast<long long>(__ldg(pos + r)) + 1;  // 1-based
-        const long long r_end = r_start + span - 1;                              // inclusive
         const int q = __ldg(mapq + r);
-        for (int j = lower_bound(starts, lo, hi, r_start - longest); j < hi; ++j) {
-            const long long s = __ldg(starts + j);
+        const long long c0 = __ldg(cigar_off + r), c1 = __ldg(cigar_off + r + 1);
+        const long long r_start = static_cast<long long>(__ldg(pos + r)) + 1;  // 1-based
+        if (key < 0 || key >= n_refs) continue;
+        const int lo = max(__ldg(table + key), lo_cut) - lo_cut;
+        const int hi = min(__ldg(table + n_refs + key), hi_cut) - lo_cut;
+        const int longest = __ldg(table + 2 * n_refs + key);
+        if (lo >= hi) continue;
+        // the first walk: the span, and which ops the record holds
+        long long span = 0;
+        unsigned held = 0;
+        for (long long c = c0; c < c1; c += 4) {  // four words in flight
+            const unsigned w0 = __ldg(cigar + c);
+            const unsigned w1 = c + 1 < c1 ? __ldg(cigar + c + 1) : 0xFu;
+            const unsigned w2 = c + 2 < c1 ? __ldg(cigar + c + 2) : 0xFu;
+            const unsigned w3 = c + 3 < c1 ? __ldg(cigar + c + 3) : 0xFu;
+            span += ref_length(w0) + ref_length(w1) + ref_length(w2) + ref_length(w3);
+            held |= (1u << (w0 & 0xF)) | (1u << (w1 & 0xF)) | (1u << (w2 & 0xF)) |
+                    (1u << (w3 & 0xF));
+        }
+        const long long r_end = r_start + span - 1;  // inclusive
+        const bool walk = (held & kWalkOps) != 0;
+        for (int j = first_at_or_after(st, lo, hi, r_start - longest); j < hi; ++j) {
+            const long long s = __ldg(st + j), e = __ldg(en + j);  // both in flight
             if (s > r_end) break;
-            const long long e = __ldg(ends + j);
             if (e < r_start) continue;  // starts within reach but ends before the read
-            atomicAdd(mapped + j, 1);
+            atomicAdd(mapped + lo_cut + j, 1);
             if (q == 0) {
-                atomicAdd(mapq0 + j, 1);
+                atomicAdd(mapq0 + lo_cut + j, 1);
                 continue;
             }
             if (r_start > s || r_end < e) continue;  // does not span the region
             int delta = 1;
-            long long g = r_start, q_at = 0;  // where the next op begins
-            for (long long c = c0; c < c1; ++c) {
-                const unsigned w = __ldg(cigar + c);
-                const unsigned op = w & 0xF;
-                const long long len = w >> 4;
-                if (op == kSkip) {
-                    if (g <= s && g + len >= e) --delta;
-                } else if ((op == kInsertion || op == kDeletion) && s <= g && g <= e) {
-                    const unsigned long long slot = atomicAdd(count, 1ULL);
-                    if (slot < static_cast<unsigned long long>(capacity)) {
-                        long long* h = out + 1 + 5 * slot;
-                        h[0] = r;
-                        h[1] = j;
-                        h[2] = q_at;
-                        h[3] = c;
-                        h[4] = g;
+            if (walk) {  // the second walk, over this region
+                long long g = r_start, q_at = 0;  // where the next op begins
+                // an op past both the start (an N op's g) and the end (an I or
+                // D op's) counts nowhere; an empty region's end lies before it
+                const long long last = s > e ? s : e;
+                auto visit = [&](unsigned word, long long c) {
+                    const unsigned op = word & 0xF;  // 15 past the CIGAR: consumes nothing
+                    const long long len = word >> 4;
+                    if (op == kSkip) {
+                        if (g <= s && g + len >= e) --delta;
+                    } else if ((op == kInsertion || op == kDeletion) && s <= g && g <= e) {
+                        const unsigned long long slot = atomicAdd(count, 1ULL) & kHitMask;
+                        if (slot < static_cast<unsigned long long>(capacity)) {
+                            long long* h = out + 1 + 5 * slot;
+                            h[0] = r;
+                            h[1] = lo_cut + j;
+                            h[2] = q_at;
+                            h[3] = c;
+                            h[4] = g;
+                        }
                     }
+                    if ((kRefOps >> op) & 1) g += len;
+                    if ((kQueryOps >> op) & 1) q_at += len;
+                };
+                for (long long c = c0; c < c1 && g <= last; c += 4) {  // nothing more past it
+                    const unsigned w0 = __ldg(cigar + c);
+                    const unsigned w1 = c + 1 < c1 ? __ldg(cigar + c + 1) : 0xFu;
+                    const unsigned w2 = c + 2 < c1 ? __ldg(cigar + c + 2) : 0xFu;
+                    const unsigned w3 = c + 3 < c1 ? __ldg(cigar + c + 3) : 0xFu;
+                    visit(w0, c);
+                    visit(w1, c + 1);
+                    visit(w2, c + 2);
+                    visit(w3, c + 3);
                 }
-                if ((kRefOps >> op) & 1) g += len;
-                if ((kQueryOps >> op) & 1) q_at += len;
             }
-            atomicAdd(depth + j, delta);
+            atomicAdd(depth + lo_cut + j, delta);
+        }
+    }
+    // the last block to finish: the count into out[0], the word cleared. The
+    // barrier orders each of the block's hits before its ticket, all on one
+    // word, so the ticket that finds every other block's returns every hit.
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        const unsigned long long seen = atomicAdd(count, 1ULL << kBlockShift);
+        if ((seen >> kBlockShift) == gridDim.x - 1) {
+            out[0] = static_cast<long long>(seen & kHitMask);
+            atomicExch(count, 0ULL);
         }
     }
 }
@@ -468,27 +546,62 @@ int ngs_pileup_indels(const void* pos, const void* keep, const void* mapq,
 }
 
 // B1's region form: records [0, n); regions int32 [2, n_regions]; table
-// int32 [3, n_refs]; counters int32 [3, n_regions]; out int64
-// [1 + 5 * capacity], its count zeroed here before the launch.
+// int32 [3, n_refs]; [lo_cut, hi_cut) within [0, n_regions]: the regions the
+// records can reach; counters int32 [3, n_regions]; out int64 [1 + 5 *
+// capacity]; scratch: 16 bytes, zero before the first launch, left zero by
+// each (one launch at a time on a scratch).
 int ngs_pileup_regions(const void* pos, const void* keep, const void* mapq,
                        const void* cigar_off, const void* cigar, int n, const void* regions,
-                       int n_regions, const void* table, int n_refs, void* counters, void* out,
-                       long long capacity, void* stream) {
-    if (n < 0 || n_regions < 0 || n_refs < 0 || capacity < 0)
+                       int n_regions, const void* table, int n_refs, int lo_cut, int hi_cut,
+                       void* counters, void* out, long long capacity, void* scratch,
+                       void* stream) {
+    if (n < 0 || n_regions < 0 || n_refs < 0 || capacity < 0 || lo_cut < 0 || lo_cut > hi_cut ||
+        hi_cut > n_regions || scratch == nullptr)
         return static_cast<int>(cudaErrorInvalidValue);
-    if (n == 0 || n_regions == 0 || n_refs == 0) return static_cast<int>(cudaSuccess);
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const cudaError_t zeroed = cudaMemsetAsync(out, 0, sizeof(long long), s);
-    if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
+    if (n == 0 || lo_cut == hi_cut || n_refs == 0) return static_cast<int>(cudaSuccess);
+    auto* count = static_cast<unsigned long long*>(scratch);
     const int* reg = static_cast<const int*>(regions);
     int* cnt = static_cast<int*>(counters);
-    pileup_regions_kernel<<<grid_for(n), kThreads, 0, s>>>(
+    pileup_regions_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(pos), static_cast<const int*>(keep),
         static_cast<const unsigned char*>(mapq), static_cast<const long long*>(cigar_off),
         static_cast<const unsigned*>(cigar), n, reg, reg + n_regions,
-        static_cast<const int*>(table), n_refs, cnt, cnt + n_regions, cnt + 2LL * n_regions,
-        static_cast<long long*>(out), capacity);
+        static_cast<const int*>(table), n_refs, lo_cut, hi_cut, cnt, cnt + n_regions,
+        cnt + 2LL * n_regions, count, static_cast<long long*>(out), capacity);
     return static_cast<int>(cudaGetLastError());
+}
+
+// The hits of the indel or region form on their way to the host: out's first
+// words int64 (the count, then the hits) copied into host (pinned memory),
+// then event recorded, both queued on the caller's stream after the launch.
+int ngs_copy_hits(const void* out, void* host, long long words, void* event, void* stream) {
+    if (words < 1 || out == nullptr || host == nullptr || event == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const cudaError_t copied = cudaMemcpyAsync(host, out, sizeof(long long) * words,
+                                               cudaMemcpyDeviceToHost, s);
+    if (copied != cudaSuccess) return static_cast<int>(copied);
+    return static_cast<int>(cudaEventRecord(static_cast<cudaEvent_t>(event), s));
+}
+
+// For the tests: the device operations a launcher queues. ngs_capture_begin
+// starts capturing the caller's stream (not the legacy default stream) into a
+// graph; ngs_capture_end ends the capture, writes the graph's number of nodes
+// to nodes (int64) and destroys the graph. Nothing captured runs.
+int ngs_capture_begin(void* stream) {
+    return static_cast<int>(cudaStreamBeginCapture(static_cast<cudaStream_t>(stream),
+                                                   cudaStreamCaptureModeThreadLocal));
+}
+
+int ngs_capture_end(void* stream, void* nodes) {
+    cudaGraph_t graph = nullptr;
+    cudaError_t err = cudaStreamEndCapture(static_cast<cudaStream_t>(stream), &graph);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    size_t count = 0;
+    err = cudaGraphGetNodes(graph, nullptr, &count);
+    cudaGraphDestroy(graph);
+    *static_cast<long long*>(nodes) = static_cast<long long>(count);
+    return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -135,7 +135,11 @@ def library() -> ctypes.CDLL:
                                                    i, p, p, p, p, p]
             lib.ngs_pileup_indels.argtypes = [p, p, p, p, p, p, i, p, i, p, i, i, i, i, i, p, ll,
                                               p, p]
-            lib.ngs_pileup_regions.argtypes = [p, p, p, p, p, i, p, i, p, i, p, p, ll, p]
+            lib.ngs_pileup_regions.argtypes = [p, p, p, p, p, i, p, i, p, i, i, i, p, p, ll,
+                                               p, p]
+            lib.ngs_copy_hits.argtypes = [p, p, ll, p, p]
+            lib.ngs_capture_begin.argtypes = [p]
+            lib.ngs_capture_end.argtypes = [p, p]
             lib.ngs_correlation_moments.argtypes = [p, ll, p, p]
             lib.ngs_correlation_moments_grid.argtypes = [p, ll, p, ll, p]
             for fn in (lib.ngs_readqc_batch, lib.ngs_readqc_unpack,
@@ -147,7 +151,8 @@ def library() -> ctypes.CDLL:
                        lib.ngs_coverage_finalize, lib.ngs_bincount_add,
                        lib.ngs_region_sums, lib.ngs_runs_count, lib.ngs_runs_write,
                        lib.ngs_pileup_add_records, lib.ngs_pileup_indels,
-                       lib.ngs_pileup_regions,
+                       lib.ngs_pileup_regions, lib.ngs_copy_hits, lib.ngs_capture_begin,
+                       lib.ngs_capture_end,
                        lib.ngs_correlation_moments,
                        lib.ngs_correlation_moments_grid):
                 fn.restype = ctypes.c_int

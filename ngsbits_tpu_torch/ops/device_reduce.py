@@ -900,18 +900,65 @@ def indel_scratch(device: torch.device) -> torch.Tensor:
     return torch.zeros(2, dtype=torch.int64, device=device)
 
 
+class _Slot:
+    """A ring slot: a pinned int64 buffer (and a numpy view of it), the CUDA
+    event recorded after each copy into it, and their raw handles for the
+    kernel library."""
+    __slots__ = ("buffer", "view", "ptr", "event", "handle")
+
+    def __init__(self):
+        self.buffer = self.view = self.ptr = None
+        self.event = torch.cuda.Event()
+        self.event.record()  # made now, so its handle exists
+        self.handle = self.event.cuda_event
+
+    def fit(self, words: int):
+        if self.buffer is None or self.buffer.shape[0] < words:
+            size = max(int(words), 0 if self.buffer is None else 2 * self.buffer.shape[0])
+            self.buffer = torch.empty(size, dtype=torch.int64, pin_memory=True)
+            self.view, self.ptr = self.buffer.numpy(), self.buffer.data_ptr()
+
+
+class HitRing:
+    """Pinned host buffers that the hits of B1's indel and region forms are
+    copied into, each with the CUDA event recorded after its copy: a launch
+    takes a free slot (made, or grown to twice its size or more, only where
+    none free is large enough); ``IndelHits.hits()`` copies the hits out of
+    their slot and gives it back, so no slot is overwritten before its hits
+    are read. A caller that holds several launches unread holds as many
+    slots; the sweep, which reads a launch's hits after launching the next,
+    holds two. An engine keeps one ring, so a call allocates no pinned
+    memory once the ring is warm. One thread at a time on a ring."""
+
+    def __init__(self):
+        self.free: list[_Slot] = []
+
+    def take(self, words: int) -> _Slot:
+        slot = self.free.pop() if self.free else _Slot()
+        slot.fit(words)
+        return slot
+
+    def give(self, slot: _Slot):
+        self.free.append(slot)
+
+
 class IndelHits:
     """One launch's hits of B1's indel form (or its region form) on their
-    way to the host: a pinned copy of the output, filled by a non-blocking
-    copy queued behind the launch, and the CUDA event after the copy (on
-    the CPU route the output itself, no event). ``hits()`` waits for the
-    event, the only wait, then returns the hits, int64 ``[count, width]``
-    (a view of the copy), or raises past the capacity."""
+    way to the host: the count and hits as int64 words (numpy; on the card a
+    ring slot's pinned buffer, filled by a copy queued behind the launch,
+    and the CUDA event recorded after it; on the CPU route a copy of the
+    output, no event). ``hits()`` waits for the event, the only wait, then
+    returns the hits, int64 ``[count, width]`` (on the card copied out of
+    the slot, which goes back to its ring), or raises past the capacity; a
+    second call returns the same."""
 
-    def __init__(self, got: torch.Tensor, capacity: int, event=None, width: int = INDEL_HIT,
-                 name: str = "pileup_indels"):
+    def __init__(self, got: np.ndarray, capacity: int, event=None, width: int = INDEL_HIT,
+                 name: str = "pileup_indels", ring: HitRing | None = None,
+                 slot: _Slot | None = None):
         self.got, self.capacity, self.event = got, capacity, event
         self.width, self.name = width, name
+        self.ring, self.slot = ring, slot
+        self.count, self._hits = None, None
 
     def wait(self):
         if self.event is not None:
@@ -919,12 +966,45 @@ class IndelHits:
             self.event = None
 
     def hits(self) -> torch.Tensor:
-        self.wait()
-        count = int(self.got[0])
-        if count > self.capacity:
-            raise RuntimeError(f"{self.name}: {count} hits past the capacity of "
+        if self.count is None:
+            self.wait()
+            self.count = count = int(self.got[0])
+            if count <= self.capacity:
+                h = self.got[1:1 + self.width * count].reshape(-1, self.width)
+                self._hits = torch.from_numpy(h if self.ring is None else h.copy())
+            if self.ring is not None:  # the hits are out of the slot: it takes another copy
+                self.ring.give(self.slot)
+            self.got = self.ring = self.slot = None
+        if self._hits is None:
+            raise RuntimeError(f"{self.name}: {self.count} hits past the capacity of "
                                f"{self.capacity} reckoned before the launch")
-        return self.got[1:1 + self.width * count].view(-1, self.width)
+        return self._hits
+
+
+def _hits_to_host(out: torch.Tensor, capacity: int, width: int, name: str,
+                  ring: HitRing | None) -> IndelHits:
+    """The hits of a launch on the card on their way to the host: one
+    non-blocking copy of ``out`` (count and hits) into a slot of ``ring`` (a
+    ring of its own without one) and one event recorded after it, both
+    queued by the kernel library (``ngs_copy_hits``)."""
+    ring = HitRing() if ring is None else ring
+    words = out.shape[0]
+    slot = ring.take(words)
+    rc = _lib().ngs_copy_hits(_ptr(out), slot.ptr, words, slot.handle, _stream(out))
+    if rc != 0:
+        raise RuntimeError(f"{name}: the copy of its hits failed with CUDA error {rc}")
+    return IndelHits(slot.view[:words], capacity, slot.event, width=width, name=name, ring=ring,
+                     slot=slot)
+
+
+def _grown(buf: torch.Tensor | None, words: int, device: torch.device) -> torch.Tensor:
+    """An engine's device output for ``words`` int64 words: ``buf``, or a new
+    buffer of twice its size or more where it is too small (the caller takes
+    its first ``words``)."""
+    if buf is None or buf.shape[0] < words:
+        size = max(words, 0 if buf is None else 2 * buf.shape[0])
+        buf = torch.empty(size, dtype=torch.int64, device=device)
+    return buf
 
 
 def _indel_args(rec: Records, loci: torch.Tensor, table: torch.Tensor,
@@ -972,7 +1052,7 @@ def _pileup_indels_launch(rec: Records, loci: torch.Tensor, table: torch.Tensor,
 def pileup_indels_into(rec: Records, loci: torch.Tensor, table: torch.Tensor,
                        min_mapq: int, window: int, out: torch.Tensor, *,
                        loci_range: tuple[int, int] | None = None,
-                       scratch: torch.Tensor | None = None,
+                       scratch: torch.Tensor | None = None, ring: HitRing | None = None,
                        wait: bool = True) -> torch.Tensor | IndelHits:
     """B1's indel form, the counterpart of the JAX package's host
     ``indel_pileup_at_positions`` (``ngsbits_tpu/qc/pileup.py:278-364``: a
@@ -986,11 +1066,12 @@ def pileup_indels_into(rec: Records, loci: torch.Tensor, table: torch.Tensor,
     the sorted loci the records can reach (``DevicePileup.reaching``; all
     of them without it): a narrower range gives the same hits. ``scratch``
     (``indel_scratch``, on the card): where the launch keeps its count; a
-    fresh one without it. With ``wait=False`` the copy is queued behind the
-    launch and an ``IndelHits`` returned, whose ``hits()`` waits for it. The
-    caller reckons the capacity before the launch (a batch's I and D ops
-    times the most loci within any ``2 * window + 1`` positions); past it
-    the kernel only counts, and the hits raise on every route."""
+    fresh one without it. The copy goes into a slot of ``ring`` (``HitRing``;
+    a ring of its own without one). With ``wait=False`` the copy is queued
+    behind the launch and an ``IndelHits`` returned, whose ``hits()`` waits
+    for it. The caller reckons the capacity before the launch (a batch's I
+    and D ops times the most loci within any ``2 * window + 1`` positions);
+    past it the kernel only counts, and the hits raise on every route."""
     window = _indel_window(window)
     tensors = (rec.pos, rec.keep, rec.mapq, rec.cigar_off, rec.cigar, rec.qual_off, loci,
                table, out)
@@ -1004,10 +1085,10 @@ def pileup_indels_into(rec: Records, loci: torch.Tensor, table: torch.Tensor,
         out[0] = count
         if count <= capacity:
             out[1:1 + INDEL_HIT * count] = hits.flatten()
-        got = IndelHits(out, capacity)
+        got = IndelHits(out[:1 + INDEL_HIT * min(count, capacity)].numpy().copy(), capacity)
     elif n_rec == 0 or n == 0 or n_refs == 0:
         out[:1].zero_()
-        got = IndelHits(torch.zeros(1, dtype=torch.int64), capacity)
+        got = IndelHits(np.zeros(1, np.int64), capacity)
     else:
         if scratch is None:
             scratch = indel_scratch(out.device)
@@ -1016,11 +1097,7 @@ def pileup_indels_into(rec: Records, loci: torch.Tensor, table: torch.Tensor,
         _pileup_indels_launch(rec, loci, table, min_mapq, window, out, cut, scratch)
         with _COUNT_LOCK:
             pileup_indels_into.launches += 1
-        host = torch.empty(out.shape, dtype=torch.int64, pin_memory=True)
-        host.copy_(out, non_blocking=True)  # the count and the hits: one copy
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(out.device))
-        got = IndelHits(host, capacity, event)
+        got = _hits_to_host(out, capacity, INDEL_HIT, "pileup_indels", ring)
     return got.hits() if wait else got
 
 
@@ -1043,7 +1120,8 @@ REGION_HIT = 5
 REGION_COUNTERS = 3  # int32 rows of the counters: mapped, mapq0, depth
 
 
-def pileup_region_pairs(rec: Records, regions: torch.Tensor, table: torch.Tensor):
+def pileup_region_pairs(rec: Records, regions: torch.Tensor, table: torch.Tensor,
+                        regions_range: tuple[int, int] | None = None):
     """B1's region form one (record, region) pair at a time: the pairs of a
     record with a key and a region of its chromosome that overlap, in order
     of record and region (``pairs``: int64 ``[p, 4]``: record, region, 1 at
@@ -1055,9 +1133,14 @@ def pileup_region_pairs(rec: Records, regions: torch.Tensor, table: torch.Tensor
     1-based reference position ``g``) for each I or D op of a spanning
     record with ``start <= g <= end``. ``pileup_regions_plain`` sums the
     pairs; the fragment route (``count_fragments``) takes them one by
-    one."""
+    one. With ``regions_range`` ``(lo, hi)`` only the sorted regions ``[lo,
+    hi)`` count (each reference's range cut to it): a range that holds every
+    region the records overlap (``DeviceRegions.reaching``'s) gives the same
+    pairs and hits."""
     dev = regions.device
     n_refs = table.shape[1]
+    if regions_range is not None:
+        table = torch.cat([table[:2].clamp(*regions_range), table[2:]])
     key = rec.keep.to(torch.int64)
     r = torch.nonzero((key >= 0) & (key < n_refs)).flatten()
     lo, hi, longest = (table[row][key[r]].to(torch.int64) for row in range(3))
@@ -1101,8 +1184,9 @@ def pileup_region_pairs(rec: Records, regions: torch.Tensor, table: torch.Tensor
 
 
 def pileup_regions_plain(rec: Records, regions: torch.Tensor, table: torch.Tensor,
-                         counters: torch.Tensor) -> torch.Tensor:
-    pairs, _, hits = pileup_region_pairs(rec, regions, table)
+                         counters: torch.Tensor,
+                         regions_range: tuple[int, int] | None = None) -> torch.Tensor:
+    pairs, _, hits = pileup_region_pairs(rec, regions, table, regions_range)
     j = pairs[:, 1]
     for row, values in enumerate((torch.ones_like(j), pairs[:, 2], pairs[:, 3])):
         counters[row].index_add_(0, j, values.to(counters.dtype))
@@ -1137,19 +1221,23 @@ def _region_args(rec: Records, regions: torch.Tensor, table: torch.Tensor,
 
 
 def _pileup_regions_launch(rec: Records, regions: torch.Tensor, table: torch.Tensor,
-                           counters: torch.Tensor, out: torch.Tensor) -> None:
-    """The region form's launch on the card alone (its count zeroed, then
-    the kernel), without the wrapper's checks, count and fetch: for the
-    device timings."""
+                           counters: torch.Tensor, out: torch.Tensor,
+                           regions_range: tuple[int, int], scratch: torch.Tensor) -> None:
+    """The region form's launch on the card alone, without the wrapper's
+    checks, count and fetch: for the device timings, which capture launches
+    in a CUDA graph (the scratch is left zero by each)."""
     rc = _lib().ngs_pileup_regions(
         _ptr(rec.pos), _ptr(rec.keep), _ptr(rec.mapq), _ptr(rec.cigar_off), _ptr(rec.cigar),
         rec.pos.shape[0], _ptr(regions), regions.shape[1], _ptr(table), table.shape[1],
-        _ptr(counters), _ptr(out), (out.shape[0] - 1) // REGION_HIT, _stream(out))
+        regions_range[0], regions_range[1], _ptr(counters), _ptr(out),
+        (out.shape[0] - 1) // REGION_HIT, _ptr(scratch), _stream(out))
     _launched("pileup_regions", rc)
 
 
 def pileup_regions_into(rec: Records, regions: torch.Tensor, table: torch.Tensor,
                         counters: torch.Tensor, out: torch.Tensor, *,
+                        regions_range: tuple[int, int] | None = None,
+                        scratch: torch.Tensor | None = None, ring: HitRing | None = None,
                         wait: bool = True) -> torch.Tensor | IndelHits:
     """B1's region form, the counterpart of the JAX package's host
     ``get_indels`` (``ngsbits_tpu/qc/variant_details.py:134-208``: a numpy
@@ -1166,36 +1254,46 @@ def pileup_regions_into(rec: Records, regions: torch.Tensor, table: torch.Tensor
     and D ops with ``start <= g <= end`` is a hit (``pileup_region_pairs``),
     written into ``out`` (``region_out``: int64 ``[1 + 5 * capacity]``, the
     count first; on the card in any order) and returned on the host as int64
-    ``[count, 5]``. With ``wait=False`` the copy is queued behind the launch
-    and an ``IndelHits`` returned, whose ``hits()`` waits for it. The caller
-    reckons the capacity before the launch (a batch's I and D ops times the
-    most regions over any one position); past it the kernel only counts, and
-    the hits raise on every route."""
+    ``[count, 5]``. ``regions_range`` ``(lo, hi)``: the sorted regions the
+    records can reach (``DeviceRegions.reaching``; all of them without it):
+    a narrower range gives the same counters and hits. ``scratch``
+    (``indel_scratch``, on the card): where the launch keeps its count; a
+    fresh one without it. The copy goes into a slot of ``ring`` (``HitRing``;
+    a ring of its own without one). With ``wait=False`` the copy is queued
+    behind the launch and an ``IndelHits`` returned, whose ``hits()`` waits
+    for it. The caller reckons the capacity before the launch (a batch's I
+    and D ops times the most regions over any one position); past it the
+    kernel only counts, and the hits raise on every route."""
     tensors = (rec.pos, rec.keep, rec.mapq, rec.cigar_off, rec.cigar, regions, table,
                counters, out)
     if any(t is None for t in tensors):
         raise ValueError("the region pileup needs the records' MAPQ")
     n_rec, n, n_refs, capacity = _region_args(rec, regions, table, counters, out)
+    lo, hi = (0, n) if regions_range is None else (int(regions_range[0]),
+                                                   int(regions_range[1]))
+    if not 0 <= lo <= hi <= n:
+        raise ValueError(f"regions range [{lo}, {hi}): it must lie within [0, {n}]")
     if _route(*tensors) == "cpu":
-        hits = pileup_regions_plain(rec, regions, table, counters)
+        hits = pileup_regions_plain(rec, regions, table, counters, (lo, hi))
         count = hits.shape[0]
         out[0] = count
         if count <= capacity:
             out[1:1 + REGION_HIT * count] = hits.flatten()
-        got = IndelHits(out, capacity, width=REGION_HIT, name="pileup_regions")
-    elif n_rec == 0 or n == 0 or n_refs == 0:
+        got = IndelHits(out[:1 + REGION_HIT * min(count, capacity)].numpy().copy(), capacity,
+                        width=REGION_HIT, name="pileup_regions")
+    elif n_rec == 0 or lo == hi or n_refs == 0:
         out[:1].zero_()
-        got = IndelHits(torch.zeros(1, dtype=torch.int64), capacity, width=REGION_HIT,
+        got = IndelHits(np.zeros(1, np.int64), capacity, width=REGION_HIT,
                         name="pileup_regions")
     else:
-        _pileup_regions_launch(rec, regions, table, counters, out)
+        if scratch is None:
+            scratch = indel_scratch(out.device)
+        _check("scratch", scratch, torch.int64, (2,))
+        _route(out, scratch)
+        _pileup_regions_launch(rec, regions, table, counters, out, (lo, hi), scratch)
         with _COUNT_LOCK:
             pileup_regions_into.launches += 1
-        host = torch.empty(out.shape, dtype=torch.int64, pin_memory=True)
-        host.copy_(out, non_blocking=True)  # the count and the hits: one copy
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(out.device))
-        got = IndelHits(host, capacity, event, width=REGION_HIT, name="pileup_regions")
+        got = _hits_to_host(out, capacity, REGION_HIT, "pileup_regions", ring)
     return got.hits() if wait else got
 
 
@@ -1538,9 +1636,11 @@ class DevicePileup:
             key = (s_chr - s_chr.min()) * (1 << 34) + self._host_loci + (1 << 31)
             self.indel_depth = int((np.searchsorted(key, key + 2 * self.indel_window, "right")
                                     - np.arange(n)).max())
-        # the indel form's count, zeroed once: each launch leaves it zero
+        # the indel form's count, zeroed once: each launch leaves it zero; its
+        # output on the card and the pinned slots of its copies, grown as needed
         self.scratch = (None if self.indel_window is None
                         else indel_scratch(self.device))
+        self.hits_out, self.ring = None, HitRing()
         self.out = torch.zeros((7 if track_mapq0 else 5) * n, dtype=torch.int32,
                                device=self.device)
         self.counts = self.out[:4 * n].view(n, 4)
@@ -1583,20 +1683,22 @@ class DevicePileup:
             loci_range: tuple[int, int] | None = None) -> IndelHits | None:
         """Counts one batch's records (``pileup_add_records_into``); with
         an indel window also launches their indel form
-        (``pileup_indels_into`` on the engine's scratch, its capacity
-        ``indel_ops``, the batch's I and D ops, times ``indel_depth``, at
-        the loci ``loci_range`` from ``reaching``; no launch without an I or
-        D op) and returns its hits on their way to the host, without a wait
-        (else None)."""
+        (``pileup_indels_into`` on the engine's scratch, output and ring,
+        its capacity ``indel_ops``, the batch's I and D ops, times
+        ``indel_depth``, at the loci ``loci_range`` from ``reaching``; no
+        launch without an I or D op) and returns its hits on their way to
+        the host, without a wait (else None)."""
         if self.count_bases:
             pileup_add_records_into(rec, self.loci, self.table, min_mapq, min_baseq,
                                     self.counts, self.dels, self.mapped, self.mapq0)
         capacity = indel_ops * self.indel_depth
         if self.indel_window is None or capacity == 0:
             return None
+        words = 1 + INDEL_HIT * capacity
+        self.hits_out = _grown(self.hits_out, words, self.device)
         return pileup_indels_into(rec, self.loci, self.table, min_mapq, self.indel_window,
-                                  indel_out(capacity, self.device), loci_range=loci_range,
-                                  scratch=self.scratch, wait=False)
+                                  self.hits_out[:words], loci_range=loci_range,
+                                  scratch=self.scratch, ring=self.ring, wait=False)
 
     def finalize(self) -> dict[str, np.ndarray]:
         """int64 ``counts [n, 4]``, ``dels``, and with ``track_mapq0``
@@ -1620,10 +1722,12 @@ class DeviceRegions:
     reference's range of them with its longest region, uploaded once; int32
     ``mapped``, ``mapq0`` and ``depth`` counters in one buffer on the
     device; ``reaching`` picks a batch's records that may overlap a region
-    (on the host), ``add`` launches the form on a batch's uploaded records
-    and returns its hits on their way to the host (``IndelHits``: one copy
-    a batch), ``finalize`` fetches the counters once as int64, in the
-    regions' own order."""
+    (on the host) and the range of the regions they reach, ``add`` launches
+    the form on a batch's uploaded records and returns its hits on their way
+    to the host (``IndelHits``: one copy a batch into a slot of the engine's
+    ``HitRing``, from an output on the card kept from batch to batch),
+    ``finalize`` fetches the counters once as int64, in the regions' own
+    order."""
 
     def __init__(self, chr_nums: np.ndarray, starts: np.ndarray, ends: np.ndarray,
                  ref_nums: np.ndarray, device: torch.device | None = None):
@@ -1664,16 +1768,24 @@ class DeviceRegions:
             c = np.concatenate([s_chr[real], s_chr[real]])
             self.depth = int(np.cumsum(step[np.lexsort((step, at, c))]).max())
         self.counters = torch.zeros((REGION_COUNTERS, n), dtype=torch.int32, device=self.device)
+        # the launches' count, zeroed once: each launch leaves it zero; their
+        # output on the card and the pinned slots of their copies, grown as needed
+        self.scratch = indel_scratch(self.device)
+        self.hits_out, self.ring = None, HitRing()
 
-    def reaching(self, pos: np.ndarray, ends: np.ndarray, keys: np.ndarray) -> np.ndarray:
+    def reaching(self, pos: np.ndarray, ends: np.ndarray,
+                 keys: np.ndarray) -> tuple[np.ndarray, tuple[int, int]]:
         """The host's pre-filter: which records' reference spans (0-based
         ``pos`` to the 1-based inclusive ``ends``) may overlap a region of
         their key's chromosome: a region starts within the span widened on
         the left by the chromosome's longest region (two searches a
-        chromosome in the batch). Only these records need to go up: the
-        others overlap no region."""
+        chromosome in the batch); and ``(lo, hi)``, the smallest range of the
+        sorted regions that holds every region those searches find (``(0,
+        0)``: none). Only these records need to go up: the others overlap no
+        region."""
         reach = np.zeros(len(keys), dtype=bool)
         n_refs = len(self._host_lo)
+        cut_lo, cut_hi = self.n, 0
         kept = np.flatnonzero((keys >= 0) & (keys < n_refs))
         for ref in np.unique(keys[kept]):
             lo, hi = self._host_lo[ref], self._host_hi[ref]
@@ -1683,16 +1795,26 @@ class DeviceRegions:
                 a = np.searchsorted(starts, pos[rr].astype(np.int64) + 1
                                     - self._host_longest[ref], "left")
                 b = np.searchsorted(starts, ends[rr].astype(np.int64), "right")
-                reach[rr[b > a]] = True
-        return reach
+                some = b > a
+                reach[rr[some]] = True
+                if some.any():
+                    cut_lo = min(cut_lo, int(lo + a[some].min()))
+                    cut_hi = max(cut_hi, int(lo + b[some].max()))
+        return reach, ((cut_lo, cut_hi) if cut_lo < cut_hi else (0, 0))
 
-    def add(self, rec: Records, indel_ops: int) -> IndelHits:
+    def add(self, rec: Records, indel_ops: int,
+            regions_range: tuple[int, int] | None = None) -> IndelHits:
         """Launches the region form on one batch's records
-        (``pileup_regions_into`` into the engine's counters, its capacity
-        ``indel_ops``, the batch's I and D ops, times ``depth``) and
-        returns its hits on their way to the host, without a wait."""
+        (``pileup_regions_into`` into the engine's counters, on its scratch,
+        output and ring, its capacity ``indel_ops``, the batch's I and D
+        ops, times ``depth``, at the regions ``regions_range`` from
+        ``reaching``) and returns its hits on their way to the host, without
+        a wait."""
+        words = 1 + REGION_HIT * indel_ops * self.depth
+        self.hits_out = _grown(self.hits_out, words, self.device)
         return pileup_regions_into(rec, self.regions, self.table, self.counters,
-                                   region_out(indel_ops * self.depth, self.device), wait=False)
+                                   self.hits_out[:words], regions_range=regions_range,
+                                   scratch=self.scratch, ring=self.ring, wait=False)
 
     def finalize(self) -> dict[str, np.ndarray]:
         """int64 ``mapped``, ``mapq0`` and ``depth`` ``[n]``, in the

@@ -27,8 +27,9 @@ records at ``indel_loci`` (``indel_edge_inputs`` and
 ``pileup_indel_edge_case``: at ``INDEL_EDGES``, at the loci range the host's
 pre-filter finds from ``record_ends``); ``pileup_regions_case`` its region
 form (the variant-details path), on those records (``spanless``: some of no
-reference span) over ``indel_regions`` (``region_edge_inputs`` and
-``pileup_region_edge_case``: at ``REGION_EDGES``);
+reference span) over ``indel_regions`` (``region_edge_columns``,
+``region_edge_inputs`` and ``pileup_region_edge_case``: at ``REGION_EDGES``,
+at the regions range the host's pre-filter finds);
 ``correlation_moments_case`` the similarity's X7, on ``genotype_rows``
 (with a grid: on that many blocks, ``correlation_moments_on_grid``, through
 the library's test entry); ``genotype_overlaps`` and ``f10_overlaps`` the
@@ -38,8 +39,9 @@ the work the function must do on its inputs: ``bytes`` (each input read once,
 each output written once; for K1 only the bytes inside the reads) and ``ops``
 (integer operations: compares and additions; for the scans, the compares
 that these inputs need, four to a 32-bit operation). ``device_ms``,
-``cold_ms`` and ``call_ms`` time a call on the card. ``chip_smoke.py``, ``scripts/k1_variants.py`` and the
-``gpu``-marked tests use them.
+``cold_ms`` and ``call_ms`` time a call on the card; ``device_ops`` counts
+the device operations a call queues. ``chip_smoke.py``,
+``scripts/k1_variants.py`` and the ``gpu``-marked tests use them.
 """
 
 from __future__ import annotations
@@ -1077,8 +1079,9 @@ def pileup_indels_case(rec: dr.Records, loci: torch.Tensor, table: torch.Tensor,
     """B1's indel form finding a batch's I and D ops within ``window`` of
     ``loci`` into an output of ``capacity`` hits (``indel_capacity``), at
     the loci ``loci_range`` (``DevicePileup.reaching``'s; all without it)
-    and on a scratch of its own; the outputs compared are the kernel's hits
-    and the plain version's over every locus, both sorted. Bytes, a floor
+    and on a scratch and a ring of pinned slots of its own; the outputs
+    compared are the kernel's hits and the plain version's over every locus,
+    both sorted. Bytes, a floor
     of what the kernel must read and write once: 16 a record (its position,
     key, MAPQ and CIGAR offset), the loci and the table, the CIGAR words of
     the records whose key has loci and whose MAPQ passes, one more offset a
@@ -1086,7 +1089,7 @@ def pileup_indels_case(rec: dr.Records, loci: torch.Tensor, table: torch.Tensor,
     written. Operations: a compare a CIGAR word of those records and a
     locus a hit."""
     out = dr.indel_out(capacity, loci.device)
-    scratch = dr.indel_scratch(loci.device)
+    scratch, ring = dr.indel_scratch(loci.device), dr.HitRing()
     cut = (0, loci.shape[0]) if loci_range is None else loci_range
     got: dict = {}
     r, _, _, _, _, _, (rec_of, op, _, _, _) = dr._pileup_records(rec, loci, table)
@@ -1099,7 +1102,7 @@ def pileup_indels_case(rec: dr.Records, loci: torch.Tensor, table: torch.Tensor,
 
     def kernel():
         got["kernel"] = dr.pileup_indels_into(rec, loci, table, min_mapq, window, out,
-                                              loci_range=cut, scratch=scratch)
+                                              loci_range=cut, scratch=scratch, ring=ring)
 
     def plain():
         got["plain"] = dr.pileup_indels_plain(rec, loci, table, min_mapq, window)
@@ -1107,6 +1110,7 @@ def pileup_indels_case(rec: dr.Records, loci: torch.Tensor, table: torch.Tensor,
     return Case("pileup_indels", dr.pileup_indels_into, kernel, plain,
                 lambda: ([sorted_hits(got["kernel"])], [sorted_hits(got["plain"])]),
                 bytes=nbytes, ops=words + hits,
+                inputs=(rec, loci, table, min_mapq, window, out, cut, scratch, ring),
                 device_fn=lambda: dr._pileup_indels_launch(rec, loci, table, min_mapq,
                                                            window, out, cut, scratch))
 
@@ -1269,20 +1273,25 @@ def sorted_region_hits(hits: torch.Tensor) -> torch.Tensor:
 
 
 def pileup_regions_case(rec: dr.Records, regions: torch.Tensor, table: torch.Tensor,
-                        capacity: int) -> Case:
+                        capacity: int, regions_range: tuple[int, int] | None = None) -> Case:
     """B1's region form over a batch's records at ``regions`` (``table``:
     each reference's range of them and its longest, as ``DeviceRegions``
     holds them) into counters of its own and an output of ``capacity``
-    hits; the outputs compared are the counters and the hits, sorted. Bytes,
-    a floor of what the kernel must read and write once: 16 a record (its
-    position, key, MAPQ and CIGAR offset), the CIGAR words of the records
-    that overlap a region, the regions and the table, 40 a hit and 12 a
-    region (the counters) written once. Operations: a compare a CIGAR word
-    of those records and an (record, region) pair."""
+    hits, at the regions ``regions_range`` (``DeviceRegions.reaching``'s;
+    all without it), on a scratch and a ring of pinned slots of its own; the
+    outputs compared are the counters and the hits, sorted, the plain
+    version's over every region. Bytes, a floor of what the kernel must read
+    and write once: 16 a record (its position, key, MAPQ and CIGAR offset),
+    the CIGAR words of the records that overlap a region, the regions and
+    the table, 40 a hit and 12 a region (the counters) written once.
+    Operations: a compare a CIGAR word of those records and an (record,
+    region) pair."""
     n = regions.shape[1]
     counters = [torch.zeros((dr.REGION_COUNTERS, n), dtype=torch.int32, device=regions.device)
                 for _ in range(2)]
     out = dr.region_out(capacity, regions.device)
+    scratch, ring = dr.indel_scratch(regions.device), dr.HitRing()
+    cut = (0, n) if regions_range is None else tuple(regions_range)
     got: dict = {}
     pairs, _, hits = dr.pileup_region_pairs(rec, regions, table)
     reached = torch.unique(pairs[:, 0])
@@ -1292,7 +1301,8 @@ def pileup_regions_case(rec: dr.Records, regions: torch.Tensor, table: torch.Ten
               + 40 * hits.shape[0] + 12 * n + 8)
 
     def kernel():
-        got["kernel"] = dr.pileup_regions_into(rec, regions, table, counters[0], out)
+        got["kernel"] = dr.pileup_regions_into(rec, regions, table, counters[0], out,
+                                               regions_range=cut, scratch=scratch, ring=ring)
 
     def plain():
         got["plain"] = dr.pileup_regions_plain(rec, regions, table, counters[1])
@@ -1301,8 +1311,9 @@ def pileup_regions_case(rec: dr.Records, regions: torch.Tensor, table: torch.Ten
                 lambda: ([counters[0], sorted_region_hits(got["kernel"])],
                          [counters[1], sorted_region_hits(got["plain"])]),
                 bytes=nbytes, ops=words + pairs.shape[0],
+                inputs=(rec, regions, table, counters[0], out, cut, scratch, ring),
                 device_fn=lambda: dr._pileup_regions_launch(rec, regions, table, counters[0],
-                                                            out))
+                                                            out, cut, scratch))
 
 
 # B1's region form at its edges: alignment_records' arguments (every CIGAR op,
@@ -1310,7 +1321,11 @@ def pileup_regions_case(rec: dr.Records, regions: torch.Tensor, table: torch.Ten
 # records without SEQ, MAPQ 0 and flags the filter drops), the share of reads
 # of no reference span, and indel_regions' arguments (regions on all but the
 # records' last chromosome by default: random, long, around I and D ops, at
-# records' spans, under long N ops, repeated, on a chromosome the BAM lacks)
+# records' spans, under long N ops, repeated, on a chromosome the BAM lacks;
+# ``refs``, not indel_regions', the BAM's references where they are more than
+# the records'); a launch that reaches about 6,000 regions, dense and up to
+# 500 bases long, so that each thread walks many of them; and a table of
+# 1,100 references.
 REGION_EDGES = {
     "sorted, three chromosomes, one without regions": (
         dict(n=4000, seed=71, width=20_000, n_refs=3), 0.0, dict(n=300, duplicates=40,
@@ -1324,30 +1339,76 @@ REGION_EDGES = {
     "long N ops over regions (RNA)": (
         dict(n=3000, seed=74, width=200_000, n_refs=2, long_n=20_000), 0.0,
         dict(n=300, duplicates=20, missing=10)),
+    "6,000 regions reached": (
+        dict(n=4000, seed=75, width=20_000, n_refs=3), 0.0, dict(n=2500, duplicates=100)),
+    "1,100 references": (
+        dict(n=4000, seed=76, width=20_000, n_refs=3), 0.0, dict(n=300, missing=20,
+                                                                 refs=1100)),
 }
+
+
+def region_edge_columns(label: str, transform: Callable[[dict], dict] | None = None):
+    """``REGION_EDGES[label]``'s records (``alignment_records``' columns,
+    some made of no reference span by ``spanless``, then ``transform``ed)
+    and regions: (columns, chromosome numbers, starts, ends, the number of
+    the BAM's references)."""
+    args, no_span, at = REGION_EDGES[label]
+    at = dict(at)
+    n_refs = args.get("n_refs", 1)
+    refs = at.pop("refs", n_refs)
+    cols = alignment_records(**args)
+    if no_span:
+        cols = spanless(cols, no_span, seed=args["seed"])
+    if transform is not None:
+        cols = transform(cols)
+    chrs, starts, ends = indel_regions(cols, seed=args["seed"], n_refs=max(n_refs - 1, 1), **at)
+    return cols, chrs, starts, ends, refs
 
 
 def region_edge_inputs(label: str, device: torch.device):
     """``REGION_EDGES[label]``'s batch on ``device`` as the sweep hands it to
-    B1's region form: (records, the engine, capacity), the filter's keys
-    with not properly paired records kept, every record up."""
-    args, no_span, at = REGION_EDGES[label]
-    cols = alignment_records(**args)
-    if no_span:
-        cols = spanless(cols, no_span, seed=args["seed"])
-    n_refs = args.get("n_refs", 1)
-    chrs, starts, ends = indel_regions(cols, seed=args["seed"], n_refs=max(n_refs - 1, 1), **at)
-    engine = dr.DeviceRegions(chrs, starts, ends, np.arange(1, n_refs + 1), device=device)
-    rec = dr.upload_records(cols["pos"], pileup_keys(cols, True), cols["cigar_off"],
-                            cols["cigar"], mapq=cols["mapq"], device=device)
-    return rec, engine, region_capacity(rec, engine)
+    B1's region form: (records, the engine, capacity, the regions range
+    ``DeviceRegions.reaching`` finds), the filter's keys with not properly
+    paired records kept, every record up."""
+    cols, chrs, starts, ends, refs = region_edge_columns(label)
+    engine = dr.DeviceRegions(chrs, starts, ends, np.arange(1, refs + 1), device=device)
+    keys = pileup_keys(cols, True)
+    _, regions_range = engine.reaching(cols["pos"], record_ends(cols), keys)
+    rec = dr.upload_records(cols["pos"], keys, cols["cigar_off"], cols["cigar"],
+                            mapq=cols["mapq"], device=device)
+    return rec, engine, region_capacity(rec, engine), regions_range
 
 
 def pileup_region_edge_case(label: str, device: torch.device) -> Case:
     """B1's region form on ``REGION_EDGES[label]``'s records at their
-    regions."""
-    rec, engine, capacity = region_edge_inputs(label, device)
-    return pileup_regions_case(rec, engine.regions, engine.table, capacity)
+    regions, at the regions range the pre-filter finds."""
+    rec, engine, capacity, regions_range = region_edge_inputs(label, device)
+    return pileup_regions_case(rec, engine.regions, engine.table, capacity, regions_range)
+
+
+def device_ops(fn: Callable[[], None], device: torch.device) -> int:
+    """The device operations (kernels, memsets, copies) one call of ``fn``
+    queues on the card: the call captured on a side stream into a CUDA graph
+    by the kernel library (``ngs_capture_begin``/``ngs_capture_end``), the
+    graph's nodes counted; nothing captured runs. ``fn`` must queue its work
+    on the current stream and must not synchronise."""
+    import ctypes
+    lib = dr._lib()
+    side = torch.cuda.Stream(device)
+    nodes = ctypes.c_longlong(0)
+    torch.cuda.synchronize(device)
+    with torch.cuda.stream(side):
+        handle = side.cuda_stream
+        rc = lib.ngs_capture_begin(handle)
+        if rc:
+            raise RuntimeError(f"ngs_capture_begin failed with error {rc}")
+        try:
+            fn()
+        finally:
+            rc = lib.ngs_capture_end(handle, ctypes.addressof(nodes))
+    if rc:
+        raise RuntimeError(f"ngs_capture_end failed with error {rc}")
+    return int(nodes.value)
 
 
 def pileup_indices(n_snps: int, n: int, seed: int = 0, hot: int = 0):

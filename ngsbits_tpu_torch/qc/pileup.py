@@ -252,9 +252,9 @@ def _sweep(bam_file: str, chr_nums: np.ndarray, positions: np.ndarray,
         ends = batch.end_positions()
         reach, loci_range = (engine.reaching(batch.pos, ends, keys) if engine is not None
                              else (np.zeros(len(keys), dtype=bool), None))
-        to_loci, to_regions = bool(reach.any()), False
+        to_loci, to_regions, regions_range = bool(reach.any()), False, None
         if spans is not None:
-            near = spans.reaching(batch.pos, ends, keys)
+            near, regions_range = spans.reaching(batch.pos, ends, keys)
             reach, to_regions = reach | near, bool(near.any())
         if not reach.all():  # only the records that reach a locus or region go up
             if not reach.any():
@@ -283,7 +283,8 @@ def _sweep(bam_file: str, chr_nums: np.ndarray, positions: np.ndarray,
             if got is not None:
                 launched.append((key_indels, batch, got))
         if to_regions:
-            launched.append((key_regions, batch, spans.add(rec, count_indel_ops(batch.cigar))))
+            launched.append((key_regions, batch, spans.add(rec, count_indel_ops(batch.cigar),
+                                                           regions_range)))
         in_engine += time.perf_counter() - t1
         if launched:
             key_pending()

@@ -43,8 +43,13 @@ re-calling) at ``selfcheck.INDEL_EDGES`` (its reached loci in shared memory,
 empty), both sweeps on the card against the CPU over a BAM with germline
 indels, VcfMerge's sweep never waiting on the batch it has just launched,
 and its refusals; B1's region form (the variant-details path) at
-``selfcheck.REGION_EDGES``, ``variant_details`` on the card against the CPU
-(with and without ``count_fragments``), and its refusals; X7 (the
+``selfcheck.REGION_EDGES`` (about 6,000 reached regions, 1,100 references,
+both at once),
+``variant_details`` on the card against the CPU (with and without
+``count_fragments``), and its refusals; both forms' launches one device
+operation each on a scratch left zero, the region form's replayed from a
+CUDA graph, the engines' pinned slots of the hits' copies reused from batch
+to batch and grown past their capacity; X7 (the
 similarity's moments)
 at the kernels phase's shapes (n = 1, off its 16-byte steps, a constant row,
 n = 2^29 + 7 past int32, an exome's and a WGS VCF pair's overlap), at rows
@@ -1799,8 +1804,8 @@ def test_pileup_regions_refuses_what_the_kernel_does_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from ngsbits_tpu_torch.ops import device_reduce as dr
-    rec, eng, capacity = selfcheck.region_edge_inputs(sorted(selfcheck.REGION_EDGES)[0],
-                                                      torch.device("cuda"))
+    rec, eng, capacity, _ = selfcheck.region_edge_inputs(sorted(selfcheck.REGION_EDGES)[0],
+                                                         torch.device("cuda"))
     regions, table, counters = eng.regions, eng.table, eng.counters
     out = dr.region_out(capacity, torch.device("cuda"))
     before = dr.pileup_regions_into.launches
@@ -1826,3 +1831,142 @@ def test_pileup_regions_refuses_what_the_kernel_does_not_take():
         dr.pileup_regions_into(rec, regions, table, counters,
                                dr.region_out(hits - 1, torch.device("cuda")))
     assert dr.pileup_regions_into.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["regions", "indels"])
+def test_a_launch_is_one_device_operation_and_leaves_its_scratch_zero(form):
+    """The region form's and the indel form's launches queue one kernel and
+    nothing else (no memset): the launch captured into a CUDA graph has one
+    node; launched three times on one scratch, the scratch is zero after
+    each and the hits are the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    if form == "regions":
+        case = selfcheck.pileup_region_edge_case(sorted(selfcheck.REGION_EDGES)[0], dev)
+        scratch = case.inputs[6]
+    else:
+        rec, eng, mq, window, capacity, cut = selfcheck.indel_edge_inputs(
+            sorted(selfcheck.INDEL_EDGES)[0], dev)
+        case = selfcheck.pileup_indels_case(rec, eng.loci, eng.table, mq, window, capacity, cut)
+        scratch = case.inputs[7]
+    assert selfcheck.device_ops(case.device_fn, dev) == 1
+    case.plain()
+    for _ in range(3):
+        case.kernel()
+        torch.cuda.synchronize()
+        assert int(scratch.abs().sum()) == 0
+        got, want = case.outputs()
+        assert torch.equal(got[-1], want[-1]) and got[-1].shape[0] > 100
+
+
+@pytest.mark.gpu
+def test_pileup_regions_replayed_from_a_graph():
+    """Three launches of the region form captured in one CUDA graph and the
+    graph replayed twice: the counters are six times the plain version's,
+    the hits of the last launch the plain version's and the scratch zero
+    (the last block clears it, so a replay finds it clean)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ngsbits_tpu_torch.ops import device_reduce as dr
+    dev = torch.device("cuda")
+    label = "a pile over overlapping regions"
+    case = selfcheck.pileup_region_edge_case(label, dev)
+    rec, regions, table, counters, out, cut, scratch, _ = case.inputs
+    launch = case.device_fn
+    launch()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(3):
+            launch()
+    counters.zero_()
+    out.fill_(-1)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    want = torch.zeros_like(counters)
+    hits = dr.pileup_regions_plain(rec, regions, table, want)
+    assert torch.equal(counters, 6 * want)
+    count = int(out[0])
+    assert count == hits.shape[0] > 1000 and int(scratch.abs().sum()) == 0
+    got = out[1:1 + dr.REGION_HIT * count].view(-1, dr.REGION_HIT)
+    assert torch.equal(selfcheck.sorted_region_hits(got), selfcheck.sorted_region_hits(hits))
+
+
+@pytest.mark.gpu
+def test_many_regions_over_many_references():
+    """About 6,000 reached regions over a table of 1,100 references, both at
+    once: the region form gives the plain version's counters and hits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ngsbits_tpu_torch.ops import device_reduce as dr
+    dev = torch.device("cuda")
+    cols, chrs, starts, ends, _ = selfcheck.region_edge_columns(
+        "6,000 regions reached")
+    eng = dr.DeviceRegions(chrs, starts, ends, np.arange(1, 1101), device=dev)
+    keys = selfcheck.pileup_keys(cols, True)
+    _, cut = eng.reaching(cols["pos"], selfcheck.record_ends(cols), keys)
+    rec = dr.upload_records(cols["pos"], keys, cols["cigar_off"], cols["cigar"],
+                            mapq=cols["mapq"], device=dev)
+    assert cut[1] - cut[0] > 6000 and eng.table.shape[1] == 1100
+    case = selfcheck.pileup_regions_case(rec, eng.regions, eng.table,
+                                         selfcheck.region_capacity(rec, eng), cut)
+    case.kernel()
+    case.plain()
+    torch.cuda.synchronize()
+    assert selfcheck.max_abs_err(case) == 0
+    assert case.outputs()[0][1].shape[0] > 1000
+
+
+@pytest.mark.gpu
+def test_the_engines_reuse_their_pinned_slots_and_grow_them():
+    """``DeviceRegions.add`` over 24 batches read as the sweep reads them (a
+    batch's hits after the next launch): the plain version's hits each time,
+    two pinned slots in all and the device output allocated once while the
+    capacity stays; a batch past the slots' and the output's size grows
+    them, with the same hits; three launches held unread take three slots,
+    none overwritten, and go back to the ring once their hits are read.
+    ``DevicePileup.add``'s indel form the same way."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ngsbits_tpu_torch.ops import device_reduce as dr
+    dev = torch.device("cuda")
+    rec, eng, capacity, cut = selfcheck.region_edge_inputs(
+        "sorted, three chromosomes, one without regions", dev)
+    ops = capacity // eng.depth
+    want = selfcheck.sorted_region_hits(dr.pileup_region_pairs(rec, eng.regions, eng.table)[2])
+    buffers, outputs, pending = set(), set(), None
+    for k in range(24):
+        grow = k == 20
+        got = eng.add(rec, ops * (8 if grow else 1), cut)
+        buffers.add(got.slot.ptr)
+        outputs.add(eng.hits_out.data_ptr())
+        if pending is not None:
+            assert torch.equal(selfcheck.sorted_region_hits(pending.hits()), want)
+        pending = got
+        if k == 19:
+            assert len(buffers) == 2 and len(outputs) == 1
+    assert torch.equal(selfcheck.sorted_region_hits(pending.hits()), want)
+    assert len(outputs) == 2 and len(buffers) <= 4
+    free = len(eng.ring.free)
+    held = [eng.add(rec, ops, cut) for _ in range(free + 1)]
+    assert len({h.slot.ptr for h in held}) == free + 1 and len(eng.ring.free) == 0
+    for h in held:
+        assert torch.equal(selfcheck.sorted_region_hits(h.hits()), want)
+    assert len(eng.ring.free) == free + 1
+
+    irec, ieng, mq, window, icap, icut = selfcheck.indel_edge_inputs(
+        sorted(selfcheck.INDEL_EDGES)[0], dev)
+    iops = icap // ieng.indel_depth
+    iwant = selfcheck.sorted_hits(dr.pileup_indels_plain(irec, ieng.loci, ieng.table, mq, window))
+    buffers, pending = set(), None
+    for _ in range(12):
+        got = ieng.add(irec, mq, 0, iops, icut)
+        buffers.add(got.slot.ptr)
+        if pending is not None:
+            assert torch.equal(selfcheck.sorted_hits(pending.hits()), iwant)
+        pending = got
+    assert torch.equal(selfcheck.sorted_hits(pending.hits()), iwant)
+    assert len(buffers) == 2 and int(ieng.scratch.abs().sum()) == 0

@@ -97,17 +97,15 @@ def edges(genome):
     """Each of ``REGION_EDGES``' batches as a BAM (two batches of it, the
     second 30,000 bases on), and its regions."""
     out = {}
-    for k, (label, (args, no_span, at)) in enumerate(sorted(selfcheck.REGION_EDGES.items())):
-        cols = selfcheck.alignment_records(**args)
-        if no_span:
-            cols = selfcheck.spanless(cols, no_span, seed=args["seed"])
-        cols = _without_seqless_insertions(cols)
-        n_refs = args.get("n_refs", 1)
-        chrs, starts, ends = selfcheck.indel_regions(cols, seed=args["seed"],
-                                                     n_refs=max(n_refs - 1, 1), **at)
+    for k, label in enumerate(sorted(selfcheck.REGION_EDGES)):
+        cols, chrs, starts, ends, refs = selfcheck.region_edge_columns(
+            label, _without_seqless_insertions)
         later = dict(cols, pos=cols["pos"] + 30_000)
         path = genome / f"edges{k}.bam"
-        synth.write_bam(path, REFS, list(LENGTHS.values()), [_batch(cols), _batch(later)])
+        # past the three chromosomes of the genome, references without records
+        names = REFS + [f"chr{i}" for i in range(len(REFS) + 1, refs + 1)]
+        lengths = list(LENGTHS.values()) + [100_000] * (len(names) - len(REFS))
+        synth.write_bam(path, names, lengths, [_batch(cols), _batch(later)])
         out[label] = (path, chrs, starts, ends)
     return out
 
@@ -167,8 +165,8 @@ def test_regions_repeat_overlap_and_lie_off_the_bam(edges):
 
 @pytest.mark.parametrize("label", sorted(selfcheck.REGION_EDGES))
 def test_the_wrapper_on_the_cpu_route_gives_the_plain_versions_counters_and_hits(label):
-    rec, eng, capacity = selfcheck.region_edge_inputs(label, torch.device("cpu"))
-    case = selfcheck.pileup_regions_case(rec, eng.regions, eng.table, capacity)
+    rec, eng, capacity, regions_range = selfcheck.region_edge_inputs(label, torch.device("cpu"))
+    case = selfcheck.pileup_regions_case(rec, eng.regions, eng.table, capacity, regions_range)
     case.kernel()
     case.plain()
     assert selfcheck.max_abs_err(case) == 0
@@ -183,16 +181,10 @@ def test_the_wrapper_on_the_cpu_route_gives_the_plain_versions_counters_and_hits
 def test_the_pre_filter_keeps_every_record_that_overlaps_a_region(label):
     """``DeviceRegions.reaching``: the pairs and hits of the records it
     keeps are those of every record; it drops some records."""
-    args, no_span, at = selfcheck.REGION_EDGES[label]
-    cols = selfcheck.alignment_records(**args)
-    if no_span:
-        cols = selfcheck.spanless(cols, no_span, seed=args["seed"])
-    n_refs = args.get("n_refs", 1)
-    chrs, starts, ends = selfcheck.indel_regions(cols, seed=args["seed"],
-                                                 n_refs=max(n_refs - 1, 1), **at)
-    eng = dr.DeviceRegions(chrs, starts, ends, np.arange(1, n_refs + 1), device="cpu")
+    cols, chrs, starts, ends, refs = selfcheck.region_edge_columns(label)
+    eng = dr.DeviceRegions(chrs, starts, ends, np.arange(1, refs + 1), device="cpu")
     keys = selfcheck.pileup_keys(cols, True)
-    reach = eng.reaching(cols["pos"], selfcheck.record_ends(cols), keys)
+    reach, _ = eng.reaching(cols["pos"], selfcheck.record_ends(cols), keys)
     got = []
     for batch in (cols, _subset(cols, reach)):
         k = keys if batch is cols else keys[reach]
@@ -209,6 +201,129 @@ def test_the_pre_filter_keeps_every_record_that_overlaps_a_region(label):
     assert got[0] == got[1] and len(got[0][1]) > 50
     if "pile" not in label:
         assert not reach.all()
+
+
+def _chunks(label: str):
+    """``REGION_EDGES[label]``'s engine (on the CPU) and its records in four
+    chunks by index, as a sweep's batches (of a coordinate-sorted file:
+    stretches of the reference), each with its regions range from
+    ``DeviceRegions.reaching``."""
+    cols, chrs, starts, ends, refs = selfcheck.region_edge_columns(label)
+    eng = dr.DeviceRegions(chrs, starts, ends, np.arange(1, refs + 1), device="cpu")
+    keys = selfcheck.pileup_keys(cols, True)
+    out = []
+    for part in np.array_split(np.arange(len(keys)), 4):
+        sub = _subset(cols, np.isin(np.arange(len(keys)), part))
+        k = keys[part]
+        _, cut = eng.reaching(sub["pos"], selfcheck.record_ends(sub), k)
+        rec = dr.upload_records(sub["pos"], k, sub["cigar_off"], sub["cigar"],
+                                mapq=sub["mapq"], device="cpu")
+        out.append((rec, cut))
+    return eng, out
+
+
+@pytest.mark.parametrize("label", sorted(selfcheck.REGION_EDGES))
+def test_every_range_that_holds_the_reached_regions_gives_the_same_counters_and_hits(label):
+    """``pileup_regions_plain`` (and the wrapper on the CPU route) at the
+    regions range ``DeviceRegions.reaching`` finds for each chunk of the
+    batch, at that range widened on either side and at every region: the
+    same counters and hits as over every region."""
+    eng, chunks = _chunks(label)
+    n, narrower = eng.n, 0
+    for rec, (lo, hi) in chunks:
+        full = torch.zeros((dr.REGION_COUNTERS, n), dtype=torch.int32)
+        want = dr.pileup_regions_plain(rec, eng.regions, eng.table, full)
+        narrower += hi - lo < n
+        for cut in ((lo, hi), (max(lo - 7, 0), hi), (lo, min(hi + 5, n)), (0, n)):
+            counters = torch.zeros_like(full)
+            got = dr.pileup_regions_plain(rec, eng.regions, eng.table, counters, cut)
+            assert torch.equal(counters, full) and torch.equal(got, want), cut
+        counters = torch.zeros_like(full)
+        got = dr.pileup_regions_into(rec, eng.regions, eng.table, counters,
+                                     dr.region_out(want.shape[0], torch.device("cpu")),
+                                     regions_range=(lo, hi))
+        assert torch.equal(counters, full) and torch.equal(got, want)
+    assert narrower >= 2
+
+
+@pytest.mark.parametrize("label", sorted(selfcheck.REGION_EDGES))
+def test_the_regions_range_holds_every_region_of_every_pair(label):
+    """``DeviceRegions.reaching``'s range of a chunk holds the region of
+    every (record, region) pair and every hit that ``pileup_region_pairs``
+    makes of it over every region; a chunk that overlaps no region gets
+    ``(0, 0)``."""
+    eng, chunks = _chunks(label)
+    pairs_seen = 0
+    for rec, (lo, hi) in chunks:
+        pairs, _, hits = dr.pileup_region_pairs(rec, eng.regions, eng.table)
+        if pairs.shape[0] == 0:
+            continue
+        assert lo <= int(pairs[:, 1].min()) and int(pairs[:, 1].max()) < hi
+        if hits.shape[0]:
+            assert lo <= int(hits[:, 1].min()) and int(hits[:, 1].max()) < hi
+        pairs_seen += pairs.shape[0]
+    assert pairs_seen > 100
+    rec, _ = chunks[0]
+    far = np.full(rec.pos.shape[0], 10_000_000, np.int64)
+    assert eng.reaching(far, far + 151, rec.keep.numpy())[1] == (0, 0)
+
+
+def _plain_and_spliced_records(seed: int) -> list[dict]:
+    """3,000 sorted records on chr1 of 151 bases: most a single M op, one
+    in 14 spliced (an N op of 300-3,000 bases), one in 12 with a 1-4 base I
+    or D op, one in 20 of MAPQ 0; mates share a name."""
+    rng = np.random.default_rng(seed)
+    pos = np.sort(rng.integers(1_000, 200_000, size=3000))
+    out = []
+    for i, p in enumerate(pos.tolist()):
+        kind, a = rng.random(), int(rng.integers(20, 120))
+        if kind < 1 / 14:
+            ops = [("M", a), ("N", int(rng.integers(300, 3001))), ("M", 151 - a)]
+        elif kind < 1 / 14 + 1 / 12:
+            ln = int(rng.integers(1, 5))
+            ops = ([("M", a), ("I", ln), ("M", 151 - a - ln)] if rng.random() < 0.5
+                   else [("M", a), ("D", ln), ("M", 151 - a)])
+        else:
+            ops = [("M", 151)]
+        qlen = sum(n for o, n in ops if o in "MI")
+        seq = bytes(rng.choice(np.frombuffer(b"ACGT", np.uint8), size=qlen))
+        out.append(_record(p, ops, seq, b"r%d" % (i // 2),
+                           mapq=0 if rng.random() < 0.05 else 60))
+    return out
+
+
+@pytest.mark.parametrize("fragments", [False, True], ids=["reads", "fragments"])
+def test_get_indels_matches_the_jax_package_where_most_records_hold_no_indel(
+        genome, tmp_path, fragments):
+    """Most records a single M op (the region form adds them to the depth
+    of each region they span with no second CIGAR walk), spliced records
+    whose N op covers some regions, records with an I or D op in others:
+    ``get_indels`` against the JAX package's, each region's indel list,
+    depth and MAPQ-0 share."""
+    records = _plain_and_spliced_records(seed=431)
+    _write(tmp_path / "plain.bam", records)
+    rng = np.random.default_rng(432)
+    regions = []
+    for r in records:
+        ops = [(w & 0xF, w >> 4) for w in r["cigar"]]
+        g = r["pos"] + 1 + ops[0][1]   # where the second op lies
+        if len(ops) > 1 and ops[1][0] == 3:   # under the N op, and across its start
+            regions += [(g + 10, g + 40), (g - 2, g + 3)]
+        elif len(ops) > 1:
+            regions.append((g - int(rng.integers(0, 4)), g + int(rng.integers(0, 6))))
+    starts = rng.integers(1_000, 200_000, size=300)
+    regions += [(int(s), int(s) + int(rng.integers(0, 60))) for s in starts]
+    fasta = str(genome / "g.fa")
+    want = jax_vd.get_indels(str(tmp_path / "plain.bam"),
+                             [(JaxChromosome("chr1"), s, e) for s, e in regions],
+                             JaxFasta(fasta), False, fragments)
+    got = port_vd.get_indels(str(tmp_path / "plain.bam"),
+                             [(Chromosome("chr1"), s, e) for s, e in regions],
+                             FastaFileIndex(fasta), False, fragments)
+    _assert_same_regions(got, want)
+    assert sum(len(r.indels) for r in want) > 100
+    assert sum(r.depth for r in want) > 1000
+    assert any(math.isnan(r.mapq0_frac) or r.mapq0_frac > 0 for r in want)
 
 
 @pytest.fixture(scope="module")
@@ -302,8 +417,8 @@ def test_region_hits_are_keyed_a_launch_later(trio_bam, monkeypatch):
 def test_hits_past_the_capacity_raise(wait):
     """A capacity below the batch's hits: the CPU route raises, as the card
     does (the kernel only counts past it)."""
-    rec, eng, capacity = selfcheck.region_edge_inputs(sorted(selfcheck.REGION_EDGES)[0],
-                                                      torch.device("cpu"))
+    rec, eng, capacity, _ = selfcheck.region_edge_inputs(sorted(selfcheck.REGION_EDGES)[0],
+                                                         torch.device("cpu"))
     n_hits = dr.pileup_region_pairs(rec, eng.regions, eng.table)[2].shape[0]
     assert 100 < n_hits <= capacity
     out = dr.region_out(n_hits - 1, torch.device("cpu"))
