@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phase kernels|mappingqc|coverage|similarity|callers|annotate|somatic]
+    python3 chip_smoke.py [--phase kernels|mappingqc|coverage|similarity|callers|annotate|somatic|mesh]
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
@@ -110,10 +110,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
             CPU route, with the default flags and once with -ec -out3:
             decompressed FASTQs and the summary identical, qcML identical once
             ``creation `` lines are dropped.
-6. mappingqc a seeded synthetic exome (utils/synth.py): chr1-22, X and Y,
-            each its first 8 Mb, the bundled hg38 SNVs' reference alleles
-            set; 60,000 regions of 100-400 bp around those SNVs and at
-            random; 2 x 2,000,000 pairs of 151 bp, coordinate-sorted, 80% on
+6. mappingqc a seeded synthetic exome (utils/synth.py): chr1-10, X and Y,
+            each its first 4.5 Mb, the bundled hg38 SNVs' reference alleles
+            set; 16,875 regions of 100-400 bp around those SNVs and at
+            random; 2 x 562,500 pairs of 151 bp, coordinate-sorted, 80% on
             or near target, duplicates, MAPQ 0, unmapped mates, clips and
             indels, heterozygous and homozygous SNPs. MappingQC -roi -read_qc
             with the contamination check on the card, counts reset before
@@ -135,7 +135,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
             bincount and X6's sort route over the run's spans); runs the JAX
             package's host route on the same files in a subprocess
             (scripts/jax_host_route.py, with -debug for its stage times) and
-            requires identical reports; then the first 131,072 records on
+            requires identical reports; then the first 65,536 records on
             the card and on the CPU route, qcML and TXT with -read_qc:
             identical once ``creation `` lines are dropped. Then RnaQC on the
             card on the same BAM: every tenth exome region as housekeeping
@@ -143,15 +143,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
             expression TSVs of 20,000 genes (``synth.rna_tsvs``), counts
             reset before and read after (C1's read form and C2 launched,
             nothing else); prints its wall, seconds by stage and launches;
-            then on the first 131,072 records the card against the CPU
+            then on the first 65,536 records the card against the CPU
             route, qcML identical once ``creation `` lines are dropped.
             ``--phase mappingqc`` runs only the kernels and this phase.
 7. coverage BedCoverage, BedLowCoverage and BedHighCoverage on the card on
-            the mappingqc phase's BAM (4,000,000 records), over three panels:
-            its exome panel (60,000 regions, unmerged: BedCoverage, BedLow-
+            the mappingqc phase's BAM (1,125,000 records), over three panels:
+            its exome panel (16,875 regions, unmerged: BedCoverage, BedLow-
             and BedHighCoverage -cutoff 20, BedLowCoverage -cutoff 20
             -min_baseq 20), a dense panel (regions of 1-50 kb over half of
-            each chromosome's first 8 Mb: BedCoverage, BedLowCoverage) and a
+            each chromosome's first 4.5 Mb: BedCoverage, BedLowCoverage) and a
             whole-genome panel (one region a chromosome at GRCh38's lengths:
             24 boxes of up to 248,956,422 positions; BedLowCoverage,
             BedCoverage). Each run with counts reset before and read after
@@ -168,7 +168,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
             stage, D2H bytes and the device memory peak. The exome and dense
             outputs must be byte-identical to the JAX package's host route
             (scripts/jax_host_route.py, timed beside); the whole-genome ones
-            are held against the port's CPU route on the first 131,072
+            are held against the port's CPU route on the first 65,536
             records with the panel cut to chr1. Then C1's record form timed
             at the median launch of each of those two exome runs (warm and
             cold; the -min_baseq run's is its main shape), and C2's dense
@@ -180,13 +180,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
             its output byte-identical to the JAX package's host route on the
             same files (scripts/jax_host_route.py; qcML without ``creation
             `` lines): SampleSimilarity -mode bam on the mappingqc phase's
-            BAM and a second BAM of 2 x 1,000,000 pairs of another sample
+            BAM and a second BAM of 2 x 281,250 pairs of another sample
             (another seed) with -min_cov 10 (the second BAM's target depth is
             about 12), -mode vcf on two seeded VCFs of 100,000 variants (80%
             of their keys shared; X7's route) and on a pair with a constant
             genotype vector (the NaN message); SampleGender -method xy, hetx
             and sry on the first BAM; SampleIdentity on both BAMs with
-            -min_depth 2 -min_snps 1 (14 of the 75 identity SNPs lie in the
+            -min_depth 2 -min_snps 1 (some of the 75 identity SNPs lie in the
             genome, off the panel: the count used is printed); CfDnaQC on the
             first BAM with -tumor_bam the second and a panel of windows around
             the genome's known SNPs annotated SNP_for_sample_identification
@@ -201,9 +201,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
             ``--phase similarity`` runs only the kernels and this phase.
 9. callers  VcfMerge -bam, TrioMaternalContamination and BedAnnotateFreq on
             the card over a synthetic trio on the mappingqc phase's genome
-            and panel (``utils/synth.py::trio_variants``: the 10,221 known
-            SNVs and random panel sites, 20,000 in all, 10% of them indels
-            of 1-4 bases; a BAM of 2 x 1,000,000 pairs a member, written by
+            and panel (``utils/synth.py::trio_variants``: the known SNVs
+            and random panel sites, 5,625 in all, 10% of them indels
+            of 1-4 bases; a BAM of 2 x 281,250 pairs a member, written by
             three processes; VCFs of about 15,000 variants with a few per
             cent left out; a BED of the sites), each run with counts reset
             before and read after (B1's record form launched, and for
@@ -273,6 +273,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
             beside the record's main shape as ``somatic_median``).
             ``--phase somatic`` runs only the kernels and this phase
             (generating the exome's genome and panel).
+12. mesh    the mesh layer (``ngsbits_tpu_torch/parallel/mesh.py``). At a
+            world of one on NCCL: ``dryrun_multichip(1)`` (the five sharded
+            steps at the JAX dryrun's shapes, each held inside the rank
+            against the same kernels on the whole input: K1, C1's span form
+            and C2, K2, the counters, X7 on uint8 genotype codes), then with
+            ``NGSBITS_MESH=1`` in this process ReadQC on 2 x ``MESH_READS``
+            reads (a prefix of the readqc phase's FASTQs: its last batch
+            odd), SeqPurge -qc on the seqpurge phase's prefix of
+            ``SP_PREFIX`` pairs, MappingQC -roi -read_qc (with the
+            contamination check) on the mappingqc phase's whole BAM and its
+            panel, BedCoverage and BedLowCoverage -min_baseq 20 on the exome BAM
+            and panel; each byte-compared with the same tool without the
+            mesh in this call, launch counts reset before and read after.
+            Then two ranks on the one card over gloo (a check of the
+            sharding, not of NCCL: NCCL refuses two ranks on one device):
+            ``dryrun_multichip(2)``, ReadQC and BedCoverage on the same
+            inputs, each rank a process of this script (``--mesh-rank``),
+            outputs byte-compared with the world of one's; the kernels'
+            launch counts of rank 1 printed. Each run prints its wall and
+            the bytes it handed ``all_reduce`` and ``all_gather``.
+            ``--phase mesh`` runs only the kernels and this phase
+            (generating its inputs).
 
 Each phase's line prints the seconds since the script started.
 
@@ -370,10 +392,14 @@ SP_BATCH = 10000  # SeqPurge's -block_size: one decisions launch per batch
 # the kernels SeqPurge with -qc runs: the ReadQC stream's three and its own four
 SP_PATH = ("readqc_unpack", "readqc_batch", "readqc_tails", "insert_scan",
            "adapter_evidence", "adapter_scan", "seqpurge_decide")
-# MappingQC's inputs: chr1-22, X and Y, each its first 8 Mb; a clinical-exome
-# panel; 2 x 2,000,000 pairs of 151 bp (utils/synth.py)
-MQ_CHROMS = {f"chr{c}": 8_000_000 for c in [*range(1, 23), "X", "Y"]}
-MQ_PAIRS, MQ_REGIONS, MQ_PREFIX = 2_000_000, 60_000, 131_072
+# MappingQC's inputs: chr1-10, X and Y, each its first 4.5 Mb; a clinical-exome
+# panel; 2 x 562,500 pairs of 151 bp (utils/synth.py). Until the mesh phase
+# came, 24 chromosomes of 8 Mb, 60,000 regions and 2 x 2,000,000 pairs: 9/32 of
+# the genome and of each count sampled from it keeps every depth the same, and
+# a chromosome's panel still spans more than 4 Mb, so the coverage tools take
+# their sparse route on the exome panel.
+MQ_CHROMS = {f"chr{c}": 4_500_000 for c in [*range(1, 11), "X", "Y"]}
+MQ_PAIRS, MQ_REGIONS, MQ_PREFIX = 562_500, 16_875, 65_536
 MQ_ALL_SNPS = 100_779   # the bundled hg38 SNPs
 
 
@@ -1242,8 +1268,9 @@ def _mq_inputs() -> dict:
 
 
 def mappingqc(records: dict):
-    phase(f"mappingqc: 2 x {MQ_PAIRS} pairs x {READ_LEN} bp on chr1-22, X and Y "
-          f"(8 Mb each), {MQ_REGIONS} target regions; -roi -read_qc, contamination on")
+    phase(f"mappingqc: 2 x {MQ_PAIRS} pairs x {READ_LEN} bp on {len(MQ_CHROMS)} chromosomes "
+          f"({MQ_CHROMS['chr1'] / 1e6:g} Mb each), {MQ_REGIONS} target regions; -roi "
+          f"-read_qc, contamination on")
     inp = _mq_inputs()
     fa, bed, bam = inp["fa"], inp["bed"], inp["bam"]
 
@@ -1825,7 +1852,7 @@ def coverage_kernels(records: dict, kept: dict, c1_runs: dict, dev: torch.device
 
 # ------------------------------------------------------- the similarity tools
 
-SIM_PAIRS, SIM_VARIANTS = 1_000_000, 100_000
+SIM_PAIRS, SIM_VARIANTS = 281_250, 100_000  # 1,000,000 pairs until the mesh phase came
 
 
 def _similarity_inputs() -> dict:
@@ -1977,7 +2004,8 @@ def f10_on_card():
 
 # ------------------------------------------------------ the pileup callers
 
-CALLERS_PAIRS, CALLERS_SITES = 1_000_000, 20_000
+# 1,000,000 pairs and 20,000 sites on the 8 Mb genome until the mesh phase came
+CALLERS_PAIRS, CALLERS_SITES = 281_250, 5_625
 CALLERS_BAMS = ("mother", "father", "child")
 _CALLERS: dict = {}  # the trio's inputs, made once for the callers and annotate phases
 
@@ -2639,15 +2667,242 @@ def somatic(records: dict):
         key: got[key] for key in ("shape", "ms", "cold_ms", "call_ms", "plain_ms", "bound_ms")}
 
 
+# ---------------------------------------------------------------- the mesh
+
+MESH_READS = RQ_PREFIX + 1   # ReadQC's reads a mate: its last batch odd
+MESH_TIMEOUT = 300           # seconds a group of ranks may take
+
+
+def _mesh_inputs() -> dict:
+    """The mesh phase's inputs: prefixes of the readqc and seqpurge phases'
+    FASTQs (made afresh with the same seeds where those phases did not run)
+    and the mappingqc phase's exome."""
+    from ngsbits_tpu_torch.utils.synth import synth_fastq, synth_pairs
+    inp = dict(_mq_inputs())
+    rq = [WORK / f"mesh_rq{k}.fastq.gz" for k in (1, 2)]
+    for k, (src, dst) in enumerate(zip((WORK / "rq1.fastq.gz", WORK / "rq2.fastq.gz"), rq)):
+        if src.exists():
+            _prefix(src, dst, MESH_READS)
+        else:
+            synth_fastq(dst, MESH_READS, READ_LEN, seed=42 + k)
+    sp = [WORK / "sp1.prefix.fastq.gz", WORK / "sp2.prefix.fastq.gz"]
+    if not sp[0].exists():
+        synth_pairs(*sp, SP_PREFIX, seed=7, read_len=READ_LEN)
+    inp.update(rq=rq, sp=sp)
+    return inp
+
+
+def _mesh_runs(inp: dict, d: Path) -> dict:
+    """The four routes' runs, each as (label, arguments, the kernels its path
+    must launch), writing under ``d``."""
+    fa, bed = str(inp["fa"]), str(inp["bed"])
+    (d / "sp").mkdir(parents=True, exist_ok=True)
+    cov = ["coverage_add_records", "coverage_finalize"]
+    return {
+        "ReadQC": (["ReadQC", "-in1", str(inp["rq"][0]), "-in2", str(inp["rq"][1]),
+                    "-out", str(d / "ReadQC.qcML")],
+                   ["readqc_unpack", "readqc_batch", "readqc_tails"]),
+        "SeqPurge -qc": (_seqpurge_args(d / "sp", *inp["sp"], []), list(SP_PATH)),
+        "MappingQC -roi -read_qc": (_mq_args(d / "mq", inp["bam"], Path(bed), Path(fa)),
+                                    ["coverage_add_reads", "coverage_finalize",
+                                     "readqc_unpack", "readqc_batch", "readqc_tails"]),
+        "BedCoverage": (["BedCoverage", "-bam", str(inp["bam"]), "-in", bed, "-out",
+                         str(d / "BedCoverage.bed")], cov + ["region_sums"]),
+        "BedLowCoverage -min_baseq 20": (["BedLowCoverage", "-bam", str(inp["bam"]), "-in", bed,
+                                          "-cutoff", str(COV_CUTOFF), "-min_baseq", "20",
+                                          "-out", str(d / "BedLowCoverage.bed")],
+                                         cov + ["threshold_runs"]),
+    }
+
+
+def _outputs(d: Path) -> dict:
+    """Every file under ``d`` as compared: FASTQs decompressed, qcML without
+    ``creation `` lines."""
+    out = {}
+    for p in sorted(d.rglob("*")):
+        if p.is_file():
+            data = p.read_bytes()
+            if p.name.endswith(".gz"):
+                data = gzip.decompress(data)
+            elif p.name.endswith(".qcML"):
+                data = "\n".join(_drop_creation(p)).encode()
+            out[str(p.relative_to(d))] = data
+    return out
+
+
+def _same_files(a: Path, b: Path, label: str):
+    got, want = _outputs(a), _outputs(b)
+    if sorted(got) != sorted(want) or not got:
+        raise AssertionError(f"{label}: files {sorted(got)} against {sorted(want)}")
+    differ = [n for n in got if got[n] != want[n]]
+    if differ:
+        raise AssertionError(f"{label}: {differ} differ")
+    return sorted(got)
+
+
+def _mesh_counts() -> dict:
+    from ngsbits_tpu_torch.parallel import mesh
+    return dict(mesh.COUNTS)
+
+
+def _moved(before: dict) -> str:
+    now = _mesh_counts()
+    return (f"all_reduce {now['all_reduce_bytes'] - before['all_reduce_bytes']} bytes in "
+            f"{now['all_reduce'] - before['all_reduce']} calls, all_gather "
+            f"{now['all_gather_bytes'] - before['all_gather_bytes']} bytes in "
+            f"{now['all_gather'] - before['all_gather']} calls")
+
+
+def _dryrun(records: dict, n: int, backend: str | None) -> list[dict]:
+    """``dryrun_multichip(n)``; each step's launches and bytes printed (a
+    rank other than 0 too), its kernels' launches recorded."""
+    from ngsbits_tpu_torch.entry import dryrun_multichip
+    t0 = time.perf_counter()
+    ranks = dryrun_multichip(n, backend=backend, timeout=MESH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    want = {"sharded_readqc_step": {"readqc_batch"},
+            "sharded_coverage_step": {"coverage_add", "coverage_finalize"},
+            "sharded_insert_scan": {"insert_scan"},
+            "sharded_correlation_step uint8": {"correlation_moments"}}
+    print(f"dryrun_multichip({n}) over {ranks[0]['backend']} on {ranks[0]['device']}: "
+          f"{wall:.3f} s with {n} process start(s); every step equal to the same kernels on "
+          f"the whole input", flush=True)
+    for r in ranks:
+        for st in r["steps"]:
+            if not want.get(st["step"], set()) <= set(st["launches"]):
+                raise AssertionError(f"dryrun rank {r['rank']}: {st['step']} launched "
+                                     f"{st['launches']}")
+            print(f"  rank {r['rank']} {st['step']}: {st['seconds']:.4f} s, launches "
+                  f"{st['launches']}, all_reduce {st['all_reduce_bytes']} bytes, all_gather "
+                  f"{st['all_gather_bytes']} bytes", flush=True)
+            for name, count in st["launches"].items():
+                by_tool = _kernel_record(records, name).setdefault("launches_by_tool", {})
+                key = f"mesh dryrun {n} rank {r['rank']}"
+                by_tool[key] = by_tool.get(key, 0) + count
+    return ranks
+
+
+def _two_ranks(label: str, args: list[str], d: Path) -> list[dict]:
+    """``args`` as two ranks of one gloo group on the card, each a process
+    of this script; their records (rank 0 wrote under ``d``)."""
+    from ngsbits_tpu_torch.parallel import mesh
+    t0 = time.perf_counter()
+    res = mesh.spawn_ranks(2, [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+                               *args],
+                           env={"NGSBITS_MESH": "1", mesh.BACKEND_ENV: "gloo",
+                                "NGSBITS_TORCH_DEVICE": "cuda"}, timeout=MESH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    for r, p in enumerate(res):
+        if p.returncode != 0:
+            raise AssertionError(f"{label}, rank {r} of 2 exited {p.returncode}:\n"
+                                 f"{p.stderr[-4000:]}")
+    ranks = [json.loads(p.stdout.strip().splitlines()[-1]) for p in res]
+    for r in ranks:
+        print(f"  {label}, rank {r['rank']} of 2 (gloo, {r['device']}): {r['seconds']:.3f} s "
+              f"in the tool, all_reduce {r['all_reduce_bytes']} bytes in {r['all_reduce']} "
+              f"calls, all_gather {r['all_gather_bytes']} bytes; launches {r['launches']}",
+              flush=True)
+    print(f"{label} as two ranks on one card over gloo: {wall:.3f} s with two process "
+          f"starts", flush=True)
+    return ranks
+
+
+def mesh_rank(args: list[str]) -> int:
+    """One rank of a two-rank run (``--mesh-rank``): the tool in this
+    process, then one JSON line of its wall, launches and collective bytes."""
+    from ngsbits_tpu_torch.parallel import mesh
+    from ngsbits_tpu_torch.tools import get_tool
+    from ngsbits_tpu_torch.utils.backend import device
+    _reset()
+    t0 = time.perf_counter()
+    rc = get_tool(args[0])().execute(args[1:])
+    torch.cuda.synchronize()
+    print(json.dumps(dict(rank=int(os.environ.get("RANK", "0")), rc=rc,
+                          seconds=time.perf_counter() - t0, device=str(device()),
+                          launches={k: v for k, v in _launches().items() if v},
+                          **mesh.COUNTS)), flush=True)
+    return rc
+
+
+def mesh_phase(records: dict):
+    """The mesh layer on the card: a world of one on NCCL, then two ranks
+    over gloo; every output byte-compared with the run without the mesh."""
+    phase(f"mesh: dryrun_multichip(1) on NCCL; ReadQC (2 x {MESH_READS} reads), SeqPurge -qc "
+          f"({SP_PREFIX} pairs), MappingQC -roi -read_qc (the mappingqc phase's BAM), BedCoverage and "
+          f"BedLowCoverage -min_baseq 20 (the exome) with NGSBITS_MESH=1 at a world of one; "
+          f"then two ranks over gloo on the one card")
+    from ngsbits_tpu_torch.parallel import mesh
+    t_phase = time.perf_counter()
+    inp = _mesh_inputs()
+    print(f"inputs ready in {time.perf_counter() - t_phase:.2f} s", flush=True)
+    _dryrun(records, 1, None)
+    plain, one = WORK / "mesh_plain", WORK / "mesh_one"
+    runs = _mesh_runs(inp, plain)
+    for label, (args, path) in _mesh_runs(inp, one).items():
+        os.environ.pop("NGSBITS_MESH", None)
+        _, plain_s = _port(runs[label][0])
+        os.environ["NGSBITS_MESH"] = "1"
+        try:
+            before = _mesh_counts()
+            _reset()
+            _, seconds = _port(args)
+            launches = _launches()
+        finally:
+            os.environ.pop("NGSBITS_MESH", None)
+        if mesh.active():
+            raise AssertionError(f"{label} left its process group up")
+        missed = [k for k in path if launches[k] == 0]
+        if missed:
+            raise AssertionError(f"{label} on the mesh did not launch {missed}: {launches}")
+        for k in path:
+            by_tool = _kernel_record(records, k).setdefault("launches_by_tool", {})
+            by_tool[f"mesh {label}"] = launches[k]
+        print(f"{label} with NGSBITS_MESH=1 (NCCL, a world of one): {seconds:.3f} s against "
+              f"{plain_s:.3f} s without the mesh; {_moved(before)}; launches "
+              f"{ {k: launches[k] for k in path} }", flush=True)
+    names = _same_files(one, plain, "the mesh at a world of one against no mesh")
+    print(f"world of one == no mesh: {len(names)} files byte-identical ({', '.join(names)})",
+          flush=True)
+
+    _dryrun(records, 2, "gloo")
+    two = WORK / "mesh_two"
+    two_runs = _mesh_runs(inp, two)
+    for label in ("ReadQC", "BedCoverage"):
+        args, path = two_runs[label]
+        ranks = _two_ranks(label, args, two)
+        missed = [k for k in path if not ranks[1]["launches"].get(k)]
+        if missed:
+            raise AssertionError(f"{label}: rank 1 launched no {missed}")
+        for k in path:
+            _kernel_record(records, k).setdefault("launches_by_tool", {})[
+                f"mesh {label} rank 1 of 2"] = \
+                ranks[1]["launches"][k]
+        name = Path(args[args.index("-out") + 1]).name
+        if _outputs(two).get(name) != _outputs(one).get(name) or name not in _outputs(two):
+            raise AssertionError(f"{label}: two ranks' {name} differs from the world of one's")
+        print(f"{label}: two ranks == a world of one ({name} byte-identical)", flush=True)
+    # C1's span form: sharded_coverage_step's, the one main path that launches it
+    span_form = _kernel_record(records, "coverage_add")
+    span_form["launches"] = span_form["launches_by_tool"]["mesh dryrun 1 rank 0"]
+    if _jax_loaded():
+        raise AssertionError(f"the port loaded {_jax_loaded()}")
+    print(f"mesh phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase", choices=("all", "kernels", "mappingqc", "coverage",
-                                        "similarity", "callers", "annotate", "somatic"),
+                                        "similarity", "callers", "annotate", "somatic",
+                                        "mesh"),
                     default="all",
                     help="'kernels' stops after the kernels phase (no tool "
                          "run, so no launch counts); 'mappingqc', 'coverage', "
-                         "'similarity', 'callers', 'annotate' and 'somatic' run the kernels "
-                         "phase and that phase only")
+                         "'similarity', 'callers', 'annotate', 'somatic' and 'mesh' run the "
+                         "kernels phase and that phase only")
+    ap.add_argument("--mesh-rank", nargs=argparse.REMAINDER, metavar="TOOL",
+                    help="run one rank of the mesh phase's two-rank runs: a tool and its "
+                         "arguments (the rank's group from RANK, WORLD_SIZE and "
+                         "NGSBITS_MESH_INIT)")
     ap.add_argument("--save-indel-launch", type=Path, metavar="FILE",
                     help="the callers phase saves the inputs of B1's indel form's launch "
                          "of median hits there (for scripts/indel_variants.py --launch)")
@@ -2660,6 +2915,8 @@ def main(argv: list[str] | None = None) -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     import ngsbits_tpu_torch  # noqa: F401  fails outside a checkout of the repo
+    if args.mesh_rank:
+        return mesh_rank(args.mesh_rank)
     os.environ["NGSBITS_TORCH_DEVICE"] = "cuda"
     dev = torch.device("cuda")
     probe()
@@ -2683,6 +2940,8 @@ def main(argv: list[str] | None = None) -> int:
                 annotate(records, _callers_inputs(), args.save_region_launch)
             if args.phase in ("all", "somatic"):
                 somatic(records)
+            if args.phase in ("all", "mesh"):
+                mesh_phase(records)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
     print(json.dumps({"kernels": list(records.values())}))

@@ -13,9 +13,11 @@ Layout:
   core/      report substrate: histogram, plots, qcML writer, basic statistics
   io/        FASTQ, BAM, VCF, GSvar, FASTA, BGZF and tabix readers and writers
   ops/       kernel wrappers with their plain torch versions, stream step
+  parallel/  the mesh: a torch.distributed process group, sharded steps
   qc/        device-backed accumulators and engines
   tools/     CLI tools whose device route is ported
   utils/     device choice, prefetch, progress lines, synthetic input
+  entry.py   entry() and dryrun_multichip(n)
 """
 
 # the qcML writer prints both; they match the JAX package's, so reports are

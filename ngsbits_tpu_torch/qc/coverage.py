@@ -32,7 +32,10 @@ pass filters each batch on the host (flags, MAPQ, the chromosome), uploads
 the batch's positions, CIGARs and keys, with ``-min_baseq`` its qualities
 too, in one copy, and launches C1's record form once per chromosome of the
 batch: the card walks the CIGARs, applies ``-min_baseq`` and maps the spans
-into the box or the flattened regions.
+into the box or the flattened regions. Under a process group
+(``parallel/mesh.py``) each rank's share of each batch's kept records goes to
+C1, and each accumulator's difference array is summed over the ranks
+(``all_reduce``) after the pass, before its C2.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from ..core.intervals import BedFile, BedLine
 from ..io.bam import (BamBatch, BamReader, FLAG_DUPLICATE, FLAG_PROPER_PAIR,
                       FLAG_SECONDARY, FLAG_SUPPLEMENTARY, FLAG_UNMAPPED)
 from ..ops.device_reduce import DeviceCoverage, upload_records
+from ..parallel import mesh
 
 
 def _alignment_filter(batch: BamBatch, min_mapq: int, skip_mismapped: bool = False) -> np.ndarray:
@@ -234,6 +238,13 @@ def _compute_chr_coverage(bed: BedFile, bam_file: str, min_mapq: int, min_baseq:
         # a record's key: its chromosome where it is kept, else -1; each
         # launch takes the range of records that holds its chromosome's
         idx = np.flatnonzero(sel)
+        lo, hi = mesh.rows(len(idx))
+        if hi - lo < len(idx):  # this rank's share of the kept records
+            idx = idx[lo:hi]
+            if not len(idx):
+                continue
+            sel = np.zeros_like(sel)
+            sel[idx] = True
         rids = rid[idx]
         quals = (batch.seq_off, batch.qual) if min_baseq > 0 else ()
         rec = upload_records(batch.pos, np.where(sel, rid, -1), batch.cigar_off,
@@ -243,6 +254,8 @@ def _compute_chr_coverage(bed: BedFile, bam_file: str, min_mapq: int, min_baseq:
             accs[int(ref_num[r])].dev.add_records(rec, int(at[0]), int(at[-1]) + 1, int(r),
                                                   min_baseq)
     reader.close()
+    for acc in accs.values():
+        mesh.sum_ranks_(acc.dev.diff)
     return accs, by_chr
 
 

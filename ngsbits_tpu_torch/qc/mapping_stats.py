@@ -5,9 +5,12 @@ port's device: each batch's spans are scattered into a difference array there
 (C1, ``ops/device_reduce.py::DeviceCoverage``) and one finalize makes the
 depth histogram and the half-depth count from it (C2), so only a few hundred
 integers come back. On ``NGSBITS_TORCH_DEVICE=cpu`` the same calls take the
-kernels' plain versions; there is no size threshold and no mesh route. WGS's
-QC-region coverage and ``somatic_custom_depth`` stay host numpy, as in the
-JAX package.
+kernels' plain versions; there is no size threshold. Under a process group
+(``parallel/mesh.py``) each rank's share of each batch's usable reads goes to
+C1, and the ranks' difference arrays are summed (``all_reduce``) before C2;
+the host counters stay whole on every rank, as on the JAX package's mesh
+route. WGS's QC-region coverage and ``somatic_custom_depth`` stay host numpy,
+as in the JAX package.
 
 Behavioral reference: ngs-bits Statistics::mapping (ROI mode,
 cppNGS/Statistics.cpp:343-803), mapping (no-ROI, :805-989), mapping_wgs
@@ -44,6 +47,7 @@ from ..io.bam import (BamBatch, BamReader, FLAG_DUPLICATE, FLAG_PAIRED,
 from ..io.fasta import FastaFileIndex, gc_content
 from ..core.plots import LinePlot
 from ..ops.device_reduce import DeviceCoverage
+from ..parallel import mesh
 from ..utils.prefetch import prefetch
 from .pileup import pileup_at_positions
 from .variant_stats import add_qc_plot, add_qc_value
@@ -284,8 +288,10 @@ class MappingScan:
                 self.bases_usable_raw += int((ol * (dp_vals[u] + 1)).sum())
 
                 # flattened-ROI coverage: the card clips each read to each
-                # region of its range
-                self._roi_dev.add_reads(qs, qe, i0, i1)
+                # region of its range (under a process group, this rank's
+                # share of the reads; mapping_roi sums the ranks' arrays)
+                lo, hi = mesh.rows(len(qs))
+                self._roi_dev.add_reads(qs[lo:hi], qe[lo:hi], i0[lo:hi], i1[lo:hi])
 
                 # paired-end mate-overlap subtraction
                 fl = batch.flag[gu]
@@ -620,6 +626,7 @@ def mapping_roi(bed: BedFile, bam_file: str, ref_file: str, min_mapq: int = 1,
     half_depth, hist_max, hist_step = _depth_histogram_params(avg_depth, is_cfdna,
                                                               adaptive=True)
     hist = Histogram(0, hist_max, hist_step)
+    mesh.sum_ranks_(scan._roi_dev.diff)
     counts, bases_half = scan._roi_dev.histogram(hist_step, hist_max,
                                                  hist.bin_count(), half_depth)
     hist.add_counts(counts.astype(np.float64))

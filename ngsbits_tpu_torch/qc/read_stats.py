@@ -8,7 +8,9 @@ QC:2000132, median/mode Q scores QC:2000144-147).
 
 Every batch goes to ``DeviceReadStream``, whose int64 carries stay on the
 device until ``fold_into`` lands them in the host fields; the report assembly
-(``get_result``) runs on the host in float64, as in the JAX package.
+(``get_result``) runs on the host in float64, as in the JAX package. Under a
+process group (``parallel/mesh.py``) each rank streams its rows of each batch,
+and ``fold_into`` merges the ranks' carries with one ``all_reduce``.
 """
 
 from __future__ import annotations
@@ -23,8 +25,9 @@ from ..core.histogram import Histogram
 from ..core.plots import BarPlot, LinePlot
 from ..core.qcml import QCCollection, QCValue
 from ..io.fastq import FastqBatch
-from ..ops.readqc import (QHIST_SIZE, carry_to_numpy, pack_batch,
+from ..ops.readqc import (CARRY_KEYS, QHIST_SIZE, carry_to_numpy, pack_batch,
                           stream_carry_grow, stream_carry_init, stream_step)
+from ..parallel import mesh
 from ..utils.backend import device as default_device
 
 FORWARD = 0
@@ -391,6 +394,12 @@ class DeviceReadStream:
         self.scratch: dict = {}
 
     def update(self, batch: FastqBatch, direction: int):
+        lo, hi = mesh.rows(len(batch))
+        if hi - lo < len(batch):  # this rank's reads of the batch
+            if lo == hi:
+                return
+            batch = FastqBatch(bases=batch.bases[lo:hi], quals=batch.quals[lo:hi],
+                               lengths=batch.lengths[lo:hi])
         bases, quals, lengths = ReadStatistics._bucket(batch)
         Lb = bases.shape[1]
         pb, nm, pq = pack_batch(bases, quals, self.qual_bits)
@@ -405,9 +414,28 @@ class DeviceReadStream:
                     0 if direction == FORWARD else 1, self.qual_bits,
                     self.scratch)
 
+    def _merge_ranks(self):
+        """Under a process group, every rank's carries summed into each
+        rank's: the ranks agree on the cycle count (``all_reduce`` MAX), grow
+        their carries to it (a rank that took no read starts from zeros), and
+        sum all of them in one ``all_reduce``."""
+        width = torch.tensor([0 if self.carry is None else self.carry["counts5"].shape[1]],
+                             dtype=torch.int64, device=self.device)
+        L = int(mesh.all_reduce_(width, op=mesh.dist.ReduceOp.MAX)[0])
+        if L == 0:
+            return
+        carry = (stream_carry_init(L, self.device) if self.carry is None
+                 else stream_carry_grow(self.carry, L))
+        flat = mesh.all_reduce_(torch.cat([carry[k].reshape(-1) for k in CARRY_KEYS]))
+        sizes = [carry[k].numel() for k in CARRY_KEYS]
+        self.carry = {k: part.view(carry[k].shape)
+                      for k, part in zip(CARRY_KEYS, flat.split(sizes))}
+
     def _spill(self):
         # land the carries on the host as the int64 spill that fold_into
         # folds, and start afresh
+        if mesh.active():
+            self._merge_ranks()
         if self.carry is None:
             return
         self.spill = carry_to_numpy(self.carry)

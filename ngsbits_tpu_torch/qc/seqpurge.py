@@ -18,7 +18,11 @@ Every p-value comparison is made against the exact binomial-tail table
 thresholds built from those comparisons, so decisions are bit-identical to
 the JAX package's.
 One copy brings back the per-pair results and the accumulators (with -ec also
-the corrected reads); no count array leaves the device. There is no host-only
+the corrected reads); no count array leaves the device. Under a process group
+(``parallel/mesh.py``) K2 runs on each rank's pairs and its counts are
+gathered into the whole batch's on every rank (``insert_scan_rows``); the
+rest of the batch stays whole on every rank, as on the JAX package's mesh
+route, and the ``-qc`` stream takes each rank's reads. There is no host-only
 route: everything runs on the device the engine was given (on the CPU the
 kernels' plain versions).
 """
@@ -35,10 +39,11 @@ import torch
 from ..core.basicstats import match_probability_table
 from ..io import native
 from ..io.fastq import FastqBatch
-from ..ops.pallas_kernels import INSERT_COUNT, insert_scan_into
+from ..ops.pallas_kernels import INSERT_COUNT
 from ..ops.seqpurge import (ACC_SIZE, ADAPTER_COUNT, COUNTERS, MAXLEN, SCAN_ROWS,
                             acc_fields, adapter_evidence_into, adapter_scan_into,
                             complement_table, decide_thresholds, seqpurge_decide_into)
+from ..parallel import mesh
 from ..utils.backend import device as default_device
 from .read_stats import FORWARD, REVERSE, ReadStatistics
 
@@ -224,7 +229,7 @@ class SeqPurgeEngine:
             marks[0].record()
         ins = torch.empty((2, B, L), dtype=INSERT_COUNT, device=self.device)
         scans = torch.empty((SCAN_ROWS, B, L), dtype=ADAPTER_COUNT, device=self.device)
-        insert_scan_into(seq1, seq2rc, min_len, ins[0], ins[1])
+        mesh.insert_scan_rows(seq1, seq2rc, min_len, ins)
         adapter_evidence_into(seq1, read2, d_len1, d_len2,
                               p.a1[:p.adapter_overlap], p.a2[:p.adapter_overlap],
                               *scans[:4])

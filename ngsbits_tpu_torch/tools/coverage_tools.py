@@ -9,6 +9,9 @@ src/BedHighCoverage/main.cpp, src/BedAnnotateFreq/main.cpp.
 ``seconds`` holds, after a run, the seconds of the BAM pass (host decode and
 filter, C1), the finalize (C2, then R1 or R2, and their fetch) and the
 output; ``finalizes`` each finalize's (positions, bytes fetched).
+With ``NGSBITS_MESH`` set, BedCoverage, BedLowCoverage and BedHighCoverage
+run as ranks of a process group, each passing its share of every batch to C1
+(``parallel/mesh.py``); rank 0 writes the output.
 BedAnnotateFreq's pileups run B1's record form, one sweep of each BAM; its
 ``seconds`` hold the set-up (the BED), the pileups (``pileup``, and their
 ``sweep`` and ``fetch``) and the output.
@@ -23,6 +26,7 @@ import time
 import numpy as np
 
 from ..core.intervals import BedFile
+from ..parallel import mesh
 from ..qc import coverage as cov
 from ..qc import pileup as pm
 from .toolbase import ToolBase, ToolError
@@ -34,6 +38,8 @@ def _base_name(path: str) -> str:
 
 
 class _CoverageTool(ToolBase):
+    mesh_route = True
+
     def __init__(self):
         super().__init__()
         self.stats: dict = {}
@@ -76,7 +82,8 @@ class BedCoverageTool(_CoverageTool):
                              stats=self.stats)
             header += "\t" + _base_name(bam)
         f.headers.append(header.encode())
-        f.store(self.get("out"))
+        if mesh.writes():
+            f.store(self.get("out"))
 
 
 class _LowOrHighBase(_CoverageTool):
@@ -108,7 +115,8 @@ class _LowOrHighBase(_CoverageTool):
             output.headers.append(b"#ROI: " + os.path.basename(in_path or "").encode())
             output.headers.append(b"#ROI regions: " + str(len(f)).encode())
             output.headers.append(b"#ROI bases: " + str(f.base_count()).encode())
-        output.store(self.get("out"))
+        if mesh.writes():
+            output.store(self.get("out"))
 
 
 class BedLowCoverageTool(_LowOrHighBase):

@@ -8,6 +8,12 @@ the host seconds of each stage after ``execute``, under the names ``-debug``
 prints (raw read QC, main QC, contamination check), and in ROI mode those of
 the main QC's BAM pass (``scan``) and depth finalize (``finalize``).
 There is no settings.ini: ``-ref`` is required. CRAM input is not ported.
+With ``NGSBITS_MESH`` set, each rank of a process group runs ``-read_qc``'s
+stream and the ROI depth on its reads (``parallel/mesh.py``). Every rank then
+runs the contamination check and ``-somatic_custom_bed`` on the whole BAM, as
+every rank runs ``MappingScan``'s host counters: a rank that skipped them would
+wait for rank 0 at the closing collective as long as they take, past the
+group's timeout on a large BAM. Rank 0 alone writes the outputs.
 
 Behavioral reference: ngs-bits src/MappingQC/main.cpp:53-188 (roi/wgs/rna
 mode dispatch + contamination + somatic custom depth + optional read QC).
@@ -21,6 +27,7 @@ import sys
 from ..core import resources
 from ..core.intervals import BedFile
 from ..core.qcml import QCCollection
+from ..parallel import mesh
 from ..qc import mapping_stats
 from ..qc.read_stats import ReadStatistics, update_from_bam
 from ..utils.trace import StageTimer
@@ -30,6 +37,7 @@ from .toolbase import ToolBase, ToolError
 class MappingQCTool(ToolBase):
     name = "MappingQC"
     description = "Calculates QC metrics based on mapped NGS reads."
+    mesh_route = True
 
     def setup(self):
         self.add_infile("in", "Input BAM file.")
@@ -75,7 +83,9 @@ class MappingQCTool(ToolBase):
             with timer.stage("Performing raw read QC"):
                 stats = ReadStatistics(single_end=single_end)
                 update_from_bam(stats, in_file, single_end)
-                stats.get_result().store_to_qcml(read_qc, [in_file], "")
+                result = stats.get_result()
+                if mesh.writes():
+                    result.store_to_qcml(read_qc, [in_file], "")
 
         parameters = []
         build = self.get_enum("build")
@@ -115,6 +125,8 @@ class MappingQCTool(ToolBase):
         if single_end:
             parameters.append("-single_end")
 
+        if not mesh.writes():
+            return
         out = self.get("out")
         if self.get_flag("txt"):
             lines = metrics.to_string_list()

@@ -3,7 +3,9 @@
 Counterpart of ``ngsbits_tpu/tools/read_qc.py``: the same flags and outputs.
 One consumer folds the prefetched batches into the device stream (the route
 the JAX tool takes on a device, too); the device comes from
-``NGSBITS_TORCH_DEVICE``.
+``NGSBITS_TORCH_DEVICE``. With ``NGSBITS_MESH`` set, each rank of a process
+group streams its reads of each batch (``parallel/mesh.py``) and rank 0
+writes every output; with ``-out1``/``-out2`` the ranks meet after each batch.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import sys
 
 from ..io.fastq import FastqReader, FastqWriter
+from ..parallel import mesh
 from ..qc.read_stats import FORWARD, REVERSE, ReadStatistics
 from ..utils.backend import device
 from ..utils.prefetch import prefetch
@@ -18,13 +21,16 @@ from .toolbase import ToolBase, ToolError
 
 
 def _consume(stats: ReadStatistics, reader: FastqReader, direction: int,
-             writer: FastqWriter | None) -> int:
+             writer: FastqWriter | None, step: bool = False) -> int:
     """Fold every batch of ``reader`` into ``stats`` (decode runs ahead in
-    a prefetch thread) and copy it to ``writer``; returns the read count."""
+    a prefetch thread) and copy it to ``writer``; returns the read count.
+    With ``step``, the ranks meet after every batch (``mesh.in_step``)."""
     for batch in prefetch(reader, depth=2):
         stats.update_batch(batch, direction)
         if writer is not None:
             writer.write_batch(batch)
+        if step:
+            mesh.in_step()
     return reader.reads_seen
 
 
@@ -36,6 +42,7 @@ class ReadQCTool(ToolBase):
         (2021, 2, 3, "Added option to write out merged input FASTQs (out1/out2)."),
         (2016, 8, 19, "Added support for multiple input files."),
     ]
+    mesh_route = True
 
     def setup(self):
         self.add_infile_list("in1", "Forward input gzipped FASTQ file(s).")
@@ -60,8 +67,13 @@ class ReadQCTool(ToolBase):
 
         long_read = self.get_flag("long_read")
         compression_level = self.get_int("compression_level")
-        out1 = self.get_outfile("out1")
-        out2 = self.get_outfile("out2")
+        writes = mesh.writes()
+        # rank 0 alone copies the reads to -out1/-out2: under a group the
+        # ranks meet after every batch, so that no rank waits for that copy
+        # at the merge for the whole run's length
+        step = mesh.active() and bool(self.get_outfile("out1") or self.get_outfile("out2"))
+        out1 = self.get_outfile("out1") if writes else ""
+        out2 = self.get_outfile("out2") if writes else ""
         w1 = FastqWriter(out1, compression_level) if out1 else None
         w2 = FastqWriter(out2, compression_level) if out2 else None
 
@@ -72,16 +84,18 @@ class ReadQCTool(ToolBase):
         infiles = []
         for i, f1 in enumerate(in1):
             n1 = _consume(stats, FastqReader(f1, keep_headers=w1 is not None,
-                                             long_read=long_read), FORWARD, w1)
+                                             long_read=long_read), FORWARD, w1, step)
             infiles.append(f1)
             if i < len(in2):
                 n2 = _consume(stats, FastqReader(in2[i], keep_headers=w2 is not None,
-                                                 long_read=long_read), REVERSE, w2)
+                                                 long_read=long_read), REVERSE, w2, step)
                 if n1 != n2:
                     raise ToolError(f"Differing number of reads in file '{f1}' and '{in2[i]}'!")
                 infiles.append(in2[i])
 
         metrics = stats.get_result()
+        if not writes:
+            return
         out = self.get_outfile("out")
         if self.get_flag("txt"):
             text = "".join(line + "\n" for line in metrics.to_string_list())

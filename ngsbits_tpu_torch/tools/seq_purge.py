@@ -6,7 +6,10 @@ ThreadCoordinator.cpp (read -> analyze -> write). Here the two mates decode
 on two prefetch threads, one consumer runs the engine (scans and per-pair
 decisions on the device that ``NGSBITS_TORCH_DEVICE`` names), and each output
 stream compresses on its own writer thread. ``-threads`` is accepted and
-changes no output: there is one consumer, which feeds the device.
+changes no output: there is one consumer, which feeds the device. With
+``NGSBITS_MESH`` set, each rank of a process group runs the insert scan on its
+pairs and the ``-qc`` stream on its reads (``parallel/mesh.py``), the rest of
+each batch whole; rank 0 writes every output.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 import sys
 
 from ..io.fastq import FastqReader, FastqWriter
+from ..parallel import mesh
 from ..qc.read_stats import ReadStatistics
 from ..qc.seqpurge import SeqPurgeEngine, SeqPurgeParams
 from ..utils.backend import device
@@ -25,6 +29,7 @@ from .toolbase import ToolBase, ToolError
 class SeqPurgeTool(ToolBase):
     name = "SeqPurge"
     description = "Removes adapter sequences from paired-end sequencing data."
+    mesh_route = True
 
     def setup(self):
         self.add_infile_list("in1", "Forward input gzipped FASTQ file(s).")
@@ -77,19 +82,21 @@ class SeqPurgeTool(ToolBase):
         self.engine = engine = SeqPurgeEngine(params, qc=qc, device=dev)
 
         level = self.get_int("compression_level")
-        w1 = FastqWriter(self.get("out1"), level)
-        w2 = FastqWriter(self.get("out2"), level)
+        writes = mesh.writes()
+        w1 = FastqWriter(self.get("out1"), level) if writes else None
+        w2 = FastqWriter(self.get("out2"), level) if writes else None
         out3 = self.get("out3")
-        w3 = FastqWriter(out3 + "_R1.fastq.gz", level) if out3 else None
-        w4 = FastqWriter(out3 + "_R2.fastq.gz", level) if out3 else None
+        w3 = FastqWriter(out3 + "_R1.fastq.gz", level) if out3 and writes else None
+        w4 = FastqWriter(out3 + "_R2.fastq.gz", level) if out3 and writes else None
 
         block = self.get_int("block_size")
         min_len = params.min_len
         # -progress: periodic throughput status lines into the summary
         # stream, like the reference (ThreadCoordinator.cpp:56-81)
-        summary_path = self.get("summary")
+        summary_path = self.get("summary") if writes else ""
         summary_stream = open(summary_path, "w") if summary_path else sys.stdout
-        progress = ProgressReporter(self.get_int("progress"), stream=summary_stream)
+        progress = ProgressReporter(self.get_int("progress") if writes else -1,
+                                    stream=summary_stream)
         # -block_prefetch bounds the decoded blocks held in memory
         # (reference: ring of block_prefetch AnalysisJob blocks); the unit
         # here is one block_size batch per queue slot and stream
@@ -107,13 +114,15 @@ class SeqPurgeTool(ToolBase):
                 new_len1, new_len2 = engine.process_batch(b1, b2)
                 processed_reads += 2 * len(b1)
                 keep_pair = (new_len1 >= min_len) & (new_len2 >= min_len)
-                w1.write_batch(b1, keep_pair, new_len1)
-                w2.write_batch(b2, keep_pair, new_len2)
-                if w3 is not None:
+                if writes:
+                    w1.write_batch(b1, keep_pair, new_len1)
+                    w2.write_batch(b2, keep_pair, new_len2)
+                if out3:
                     only1 = ~keep_pair & (new_len1 >= min_len)
                     only2 = ~keep_pair & (new_len2 >= min_len)
-                    w3.write_batch(b1, only1, new_len1)
-                    w4.write_batch(b2, only2, new_len2)
+                    if writes:
+                        w3.write_batch(b1, only1, new_len1)
+                        w4.write_batch(b2, only2, new_len2)
                     removed = (int(only1.sum()) + int(only2.sum())
                                + 2 * int((~keep_pair & ~only1 & ~only2).sum()))
                 else:
@@ -121,6 +130,10 @@ class SeqPurgeTool(ToolBase):
                 engine.stats.reads_removed += removed
                 progress.update(processed_reads=processed_reads)
 
+        # every rank folds the -qc stream (a collective under a process group)
+        qc_result = qc.get_result() if qc_file else None
+        if not writes:
+            return
         w1.close()
         w2.close()
         if w3 is not None:
@@ -135,7 +148,7 @@ class SeqPurgeTool(ToolBase):
 
         if qc_file:
             # the reference's SeqPurge qcML carries no 'source file' entries
-            qc.get_result().store_to_qcml(qc_file, [], "")
+            qc_result.store_to_qcml(qc_file, [], "")
 
 
 TOOLS = {"SeqPurge": SeqPurgeTool}

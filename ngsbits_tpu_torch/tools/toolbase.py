@@ -42,6 +42,9 @@ class ToolBase:
     name = "Tool"
     description = ""
     changelog: list = []   # list of (year, month, day, text)
+    # True where the tool has a mesh route: with NGSBITS_MESH set, each
+    # process runs as a rank of a process group (parallel/mesh.py)
+    mesh_route = False
 
     def __init__(self):
         self._args: dict[str, _Arg] = {}
@@ -191,6 +194,13 @@ class ToolBase:
                 raise CommandLineError(f"Mandatory parameter '-{a.name}' not set!")
 
     def execute(self, argv: list[str]) -> int:
+        if self.mesh_route:
+            from ..parallel import mesh
+            if mesh.enabled() and not mesh.active():
+                return mesh.run_tool(lambda: self._run(argv))
+        return self._run(argv)
+
+    def _run(self, argv: list[str]) -> int:
         # one tool invocation == one process in the reference: start with a
         # fresh first-seen registry for non-standard contigs
         from ..core.chromosome import reset_dynamic_contigs

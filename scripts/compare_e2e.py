@@ -96,7 +96,7 @@ def main(argv: list[str] | None = None) -> int:
         small = [WORK / "small1.fastq.gz", WORK / "small2.fastq.gz"]
         for src, dst in zip(sp, small):
             _prefix(src, dst, 10_000)
-        if "MappingQC" in tools:  # chip_smoke.py's exome: 24 chromosomes of 8 Mb
+        if "MappingQC" in tools:  # a synthetic exome: 24 chromosomes of 8 Mb
             lengths = {f"chr{c}": 8_000_000 for c in [*range(1, 23), "X", "Y"]}
             chrom, pos, ref, alt, _ = synth.known_snvs(lengths)
             genome = synth.synth_genome(mq[2], lengths, seed=11, set_bases=[

@@ -4,7 +4,7 @@ against another, in turns.
 
     python3 scripts/profile_pileup.py [--other DIR] [--pairs 2000000] [--turns 1]
 
-Writes chip_smoke.py's synthetic exome (24 chromosomes of 8 Mb, 60,000
+Writes a synthetic exome (24 chromosomes of 8 Mb, 60,000
 regions around the bundled hg38 SNVs and at random, a BAM of N pairs)
 under build/profile_pileup/, then runs the contamination check
 (``qc/mapping_stats.py::contamination``, MappingQC's stage "Performing

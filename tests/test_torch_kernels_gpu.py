@@ -66,6 +66,7 @@ Integer outputs: the tolerance is exact equality. Skips where no CUDA
 device is available."""
 
 import functools
+import gzip
 
 import numpy as np
 import pytest
@@ -2061,3 +2062,96 @@ def test_somatic_tools_on_card_match_cpu(somatic_inputs, tmp_path, monkeypatch, 
         else:
             assert not launched
     assert outs[0] == outs[1]
+
+
+# ------------------------------------------------------------------ the mesh
+
+@pytest.mark.gpu
+def test_mesh_world_of_one_on_nccl():
+    """``dryrun_multichip(1)`` on the card: an NCCL group of one rank runs the
+    five steps, each held against the same kernels on the whole input inside
+    the rank, and each step launched its kernels (K1, C1's span form and C2,
+    K2, X7)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ngsbits_tpu_torch import entry
+    (record,) = entry.dryrun_multichip(1, timeout=300)
+    assert record["backend"] == "nccl" and record["device"] == "cuda:0"
+    launched = {s["step"]: set(s["launches"]) for s in record["steps"]}
+    assert launched["sharded_readqc_step"] == {"readqc_batch"}
+    assert launched["sharded_coverage_step"] == {"coverage_add", "coverage_finalize"}
+    assert launched["sharded_insert_scan"] == {"insert_scan"}
+    assert launched["sharded_correlation_step uint8"] == {"correlation_moments"}
+
+
+@pytest.mark.gpu
+def test_mesh_tool_at_a_world_of_one_on_nccl_matches_the_card(tmp_path, monkeypatch):
+    """ReadQC -out1 with ``NGSBITS_MESH=1`` in this process: an NCCL group of
+    one that meets after each batch (``mesh.in_step``), the same report and
+    reads as without the mesh, the group left afterwards."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ngsbits_tpu_torch.__main__ import main
+    from ngsbits_tpu_torch.parallel import mesh
+    from ngsbits_tpu_torch.utils import synth
+    synth.synth_fastq(tmp_path / "r.fastq.gz", 3001, 151, seed=31)
+    monkeypatch.setenv("NGSBITS_TORCH_DEVICE", "cuda")
+    for var in ("WORLD_SIZE", "RANK", "MASTER_ADDR", mesh.INIT_ENV, mesh.BACKEND_ENV):
+        monkeypatch.delenv(var, raising=False)
+    reports = []
+    for flag in ("0", "1"):
+        monkeypatch.setenv("NGSBITS_MESH", flag)
+        out = tmp_path / f"mesh{flag}.qcML"
+        reads = tmp_path / f"mesh{flag}.fastq.gz"
+        before = mesh.COUNTS["all_reduce"]
+        assert main(["ReadQC", "-in1", str(tmp_path / "r.fastq.gz"), "-out", str(out),
+                     "-out1", str(reads)]) == 0
+        assert (mesh.COUNTS["all_reduce"] > before) == (flag == "1")
+        assert not mesh.active()
+        reports.append([l for l in out.read_text().splitlines() if "creation " not in l])
+        reports.append(gzip.decompress(reads.read_bytes()))
+    assert reports[0] == reports[2]
+    assert reports[1] == reports[3] == gzip.decompress((tmp_path / "r.fastq.gz").read_bytes())
+
+
+@pytest.mark.gpu
+def test_mesh_path_wrappers_skip_the_launch_at_zero_rows():
+    """Every wrapper on the mesh path, given zero rows on the card: no launch,
+    no error, every output as it was."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ngsbits_tpu_torch.ops import KERNELS
+    from ngsbits_tpu_torch.ops import device_reduce as dr
+    from ngsbits_tpu_torch.ops import pallas_kernels as pk
+    from ngsbits_tpu_torch.ops import readqc as ops_readqc
+    dev = torch.device("cuda")
+    before = {k.__name__: k.launches for k in KERNELS}
+    u8 = torch.zeros((0, 64), dtype=torch.uint8, device=dev)
+    i32 = torch.zeros(0, dtype=torch.int32, device=dev)
+    carry = ops_readqc.stream_carry_init(64, dev)
+    sums = {k: v.clone() for k, v in carry.items()}
+    pk.readqc_unpack_into(torch.zeros((0, 16), dtype=torch.uint8, device=dev),
+                          torch.zeros((0, 8), dtype=torch.uint8, device=dev),
+                          torch.zeros((0, 48), dtype=torch.uint8, device=dev), 6, u8, u8.clone())
+    pk.readqc_batch_into(u8, u8.clone(), i32, carry["counts5"], carry["qsum1"], carry["qhist"],
+                         i32.clone())
+    pk.readqc_tails_into(i32, i32.clone(), 0, 0, carry)
+    m = torch.zeros((0, 64), dtype=pk.INSERT_COUNT, device=dev)
+    pk.insert_scan_into(u8, u8.clone(), i32, m, m.clone())
+    diff = torch.zeros(65, dtype=torch.int32, device=dev)
+    dr.coverage_add_into(i32, i32.clone(), diff)
+    dr.coverage_add_reads_into(torch.zeros((4, 0), dtype=torch.int32, device=dev),
+                               torch.tensor([[1], [64], [0]], dtype=torch.int32, device=dev),
+                               diff)
+    rec = dr.upload_records(np.zeros(2, np.int32), np.zeros(2, np.int32), np.array([0, 1, 2]),
+                            np.full(2, 10 << 4, np.uint32), np.array([0, 10, 20]),
+                            np.full(20, 40, np.uint8), device=dev)
+    blocks = torch.tensor([[0], [64], [0]], dtype=torch.int64, device=dev)
+    for baseq in (0, 20):
+        dr.coverage_add_records_into(rec, 1, 1, 0, baseq, blocks, diff)
+    moments = torch.full((5,), 7, dtype=torch.int64, device=dev)
+    dr.correlation_moments_into(torch.zeros((2, 0), dtype=torch.uint8, device=dev), moments)
+    torch.cuda.synchronize()
+    assert {k.__name__: k.launches for k in KERNELS} == before
+    assert not diff.any() and moments.tolist() == [7] * 5
+    assert all(torch.equal(carry[k], sums[k]) for k in carry)
