@@ -86,9 +86,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
             ``|HIGH|`` at a value's ends and across a ``;``, RS without
             CSQ, multi-allelic, lower-case and MNP alleles, FILTER ``.``,
             ``PASS;low`` and ``mosaic`` alone and in lists, FORMAT without
-            GT, GT ``./.``, an INFO over 64 KiB), with no records and at
-            20,000 random records (timed there until the variants phase
-            times it), each with and without the FILTER test; RohHunter's
+            GT, GT ``./.``, an INFO over 64 KiB), with no records, at
+            ``selfcheck.variant_seams``' records (``CSQ=``, ``;RS=rs``,
+            ``|rs``, ``|HIGH|``, a CSQ value's end, ALT's ``,``, the GT key
+            and the GT value at every offset of a 16-byte chunk and across
+            the 512-byte step in which a warp reads a record; INFOs of 511,
+            512, 513 and 1,025 bytes) and at 20,000 random records (timed
+            there until the variants phase times it), each with and without
+            the FILTER test; RohHunter's
             ROH products (H1, ``roh_products``) at ``roh_edge_inputs``
             (single markers, the whole array, af 0, products that go
             subnormal and underflow to 0, an empty range, ranges outside the
@@ -311,7 +316,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
             products' bit patterns equal, and equal to what the run got), V1
             timed at the ``-ignore_filter`` run's launch (its bound counts
             the bytes the counts need, ``selfcheck.variant_needed_bytes``)
-            and H1 at the first RohHunter run's two (the final regions' plain
+            and at the qcML run's (the FILTER test: ``filtered_launch`` in
+            its record) and H1 at the first RohHunter run's two (the final regions' plain
             version once: it takes a step a marker of the longest region);
             then ``NgsBitsInfo``'s lines.
             ``--phase variants`` runs only the kernels and this phase.
@@ -2923,6 +2929,8 @@ def variants(records: dict):
     phase(f"kernels: V1 at the variants phase's {len(launches_all['variant_classify'])} "
           f"launches and H1 at its {len(launches_all['roh_products'])}")
     timed = next(k for k, a in enumerate(launches_all["variant_classify"]) if not a[4])
+    filtered = next(k for k, a in enumerate(launches_all["variant_classify"])
+                    if a[0] == "VariantQC")
     for k, (label, _, data, offsets, filter_, out) in enumerate(launches_all["variant_classify"]):
         case = selfcheck.variant_classify_case(data, offsets, filter_)
         _check_equal(case, f"{label}'s launch")
@@ -2930,10 +2938,13 @@ def variants(records: dict):
             raise AssertionError(f"variant_classify: {label}'s counts differ from the plain "
                                  f"version's")
         n = offsets.shape[0] // 6
-        if k == timed:
-            needed, _ = selfcheck.variant_needed_bytes(data, offsets, filter_)
-            _record(records, case, f"{label}'s launch: {n} records, {int(offsets[-1])} bytes of "
-                    f"fields, {needed} of them needed", True, cold=True)
+        if k in (timed, filtered):
+            needed, counted = selfcheck.variant_needed_bytes(data, offsets, filter_)
+            got = _record(records, case, f"{label}'s launch: {n} records ({counted} counted), "
+                          f"{int(offsets[-1])} bytes of fields, {needed} of them needed",
+                          k == timed, cold=True)
+            if k == filtered:
+                records["variant_classify"]["filtered_launch"] = got
         else:
             print(f"variant_classify {label}'s launch: equal ({n} records)", flush=True)
     for label, j, af, ranges, out in launches_all["roh_products"]:

@@ -17,23 +17,64 @@
 //
 // V1's input is the records' fields packed on the host into one flat byte
 // buffer: REF, ALT, FILTER, INFO, FORMAT and the first sample's field of
-// record i are bytes [offsets[6i + k], offsets[6i + k + 1]) for k = 0..5. The
-// work is one read of those bytes (INFO is most of them: a VEP CSQ of one to
-// four transcripts) and a few compares a byte, so it is bound by the bytes.
-// A thread takes a record and walks its fields once, in order, with the
-// semantics of the port's host accessors (ngsbits_tpu_torch/io/vcf.py):
-// FILTER passes when empty, "." or "PASS"; INFO's CSQ and RS values are
-// those of the first entry whose key is exactly CSQ (RS), a flag giving
-// "TRUE"; "|rs" and "|HIGH|" are searched in the CSQ value by a matcher
-// state each (both patterns have no proper prefix that is a suffix but "|",
-// so a mismatch restarts at 1 on '|' and at 0 otherwise); GT is the sample's
-// field at the index of the first FORMAT key "GT". A thread reads its bytes
-// through a window of one aligned 16-byte load (the buffer is 16-byte
-// aligned and padded to a multiple of 16 bytes by the wrapper), so it issues
-// one load every 16 bytes, not one a byte. Each thread keeps its counts in
-// registers over the records of its grid-stride loop; a block sums them by
-// warp reductions and shared-memory atomics and adds them into the counters
-// with one 64-bit atomic a counter.
+// record i are bytes [offsets[6i + k], offsets[6i + k + 1]) for k = 0..5,
+// the buffer 16-byte aligned and padded to a multiple of 16 bytes. The work
+// is one read of those bytes (INFO is most of them: a VEP CSQ of one to four
+// transcripts, about 424 bytes a record) and a few compares a byte, so it is
+// bound by the bytes. The semantics are the port's host accessors'
+// (ngsbits_tpu_torch/io/vcf.py): FILTER passes when empty, "." or "PASS";
+// INFO's CSQ and RS values are those of the first entry whose key is exactly
+// CSQ (RS), a flag giving "TRUE"; "|rs" and "|HIGH|" count where they lie
+// wholly inside the CSQ value; GT is the sample's field at the index of the
+// first FORMAT key "GT".
+//
+// V1's design: a team of 32 lanes (a warp) takes a record at a time, so
+// that its loads are coalesced and its lanes do not wait on each other's
+// field lengths. Its per-byte tests are integer operations, which Hopper
+// issues at half the rate of the others: the design keeps them few.
+// - Groups. A team takes 32 consecutive records at a time. Lane k loads
+//   record k's seven offsets (contiguous) and stages them as 32-bit offsets
+//   from the record's first 16-byte chunk with its step count, and with the
+//   FILTER test tests record k's FILTER (its one or two chunks loaded at
+//   once): a ballot gives the records that count, and a failing record reads
+//   nothing more.
+// - Steps. The team reads a record's chunks from REF's through the one that
+//   holds byte offsets[6i + 6] (the record's end, a virtual separator) in
+//   steps of 32 chunks, 512 bytes: each lane one 16-byte load that skips L1
+//   (ld.global.nc.L1::no_allocate) into a register one step ahead, stored
+//   into the team's ring of four 512-byte slots in shared memory when the
+//   step begins. So the next step's loads, or the next record's, are in
+//   flight while a step is evaluated, a lane reads the 8 bytes before its
+//   chunk (the previous lane's, or the previous step's) from the ring, and
+//   one warp sync a step suffices. The buffer is padded to 16 bytes: a chunk
+//   that holds a record byte never leaves it. One step covers the average
+//   record; a longer one takes more with its state carried (an INFO over
+//   64 KiB takes 128).
+// - INFO's keys. An entry starts at INFO's start or after ';'. Where some
+//   lane holds a ';' (a zero-byte test on its words), each lane takes the
+//   entries that start after its ';' in [o - 4, o + 12) (its chunk starting
+//   at o): the key and its terminator, four bytes, lie in this step, or at
+//   and past INFO's end, where the entry ends; the lane holding INFO's end
+//   takes the rest. A key counts when it is exactly CSQ (RS) followed by
+//   ';', '=' or INFO's end; the first over the team (a ballot, then __ffs)
+//   is the record's, a flag shadowing a later value. The RS value's first
+//   two bytes come from the ring.
+// - The CSQ value. It ends at the first ';' at or after its start (a ballot
+//   of exact ';' masks where some lane holds one) or at INFO's end. "|rs" and
+//   "|HIGH|" count when they start at or after its start and end before its
+//   end; a lane tests its 16 positions (4-byte words ending at each, funnel
+//   shifts over its chunk and the 8 bytes before it) only where some lane
+//   holds their last two bytes ("rs", "H|": zero-halfword tests of its words
+//   and of its words shifted a byte). The 8 bytes before a chunk carry a
+//   pattern across the 512-byte seam, counted once.
+// - The short fields. REF's byte and ALT's first two come from the ring;
+//   FORMAT and the sample's first 64 bytes are copied from the ring to the
+//   team's shared memory. After the group's steps, lane k finishes record k:
+//   the first FORMAT key GT and the sample's value at its index (past the
+//   64 bytes from the buffer), the indel, transition or transversion, then
+//   a ballot a count.
+// - Counts. Lane k keeps count k; a block sums them in shared memory and
+//   adds them into the counters with one 64-bit atomic a counter.
 //
 // H1 takes the markers' allele frequencies as float64 (each a float32 value,
 // so a * a is exact in double) and [k, 2] int64 inclusive index ranges. A
@@ -54,167 +95,95 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;
+constexpr int kBlocksPerSm = 8;  // H1's grid cap
 constexpr int kCounters = 9;
 enum Counter { kPassing, kKnown, kHigh, kHom, kIndel, kTi, kTv, kMosaic, kHet };
 constexpr int kFields = 6;  // REF, ALT, FILTER, INFO, FORMAT, the first sample
 
-// Bytes of the buffer through one aligned 16-byte load at a time.
-struct Window {
-    const uint4* base;
-    long long chunk;
+// V1's shape
+constexpr int kLanes = 32;                      // lanes a record: a team
+constexpr int kTeams = kThreads / kLanes;       // teams a block
+constexpr int kGroup = 32;                      // records whose offsets a team stages at once
+constexpr int kStep = 16 * kLanes;              // bytes a step: a 16-byte chunk a lane
+constexpr int kSlots = 4;                       // steps a team's ring holds
+constexpr int kRing = kSlots * kStep;
+constexpr int kV1BlocksPerSm = 3;               // V1's grid cap and register budget
+constexpr int kTail = 64;                       // FORMAT and sample bytes copied a record
+constexpr int kFar = 1 << 30;                   // offsets from a record's base are clamped to it
+constexpr int kRebaseSteps = 1 << 20;           // steps between moves of a record's base
+static_assert(kGroup <= kLanes, "a lane tests one record's FILTER");
+static_assert(kCounters <= kLanes, "a lane keeps one count");
+static_assert((kSlots & (kSlots - 1)) == 0, "ring offsets wrap by a mask");
+
+constexpr unsigned word4(char a, char b, char c, char d) {
+    return static_cast<unsigned char>(a) | static_cast<unsigned char>(b) << 8 |
+           static_cast<unsigned char>(c) << 16 | static_cast<unsigned>(static_cast<unsigned char>(d)) << 24;
+}
+// the words the tests compare, lowest byte first: a key's first bytes after
+// its ';', and the 4-byte words ending at a pattern's positions
+constexpr unsigned kCsq = word4('C', 'S', 'Q', 0);          // & 0x00FFFFFF: "CSQ"
+constexpr unsigned kRs = word4('R', 'S', 0, 0);             // & 0x0000FFFF: "RS"
+constexpr unsigned kPipeRs = word4(0, '|', 'r', 's');       // & 0xFFFFFF00: "|rs"
+constexpr unsigned kIghPipe = word4('I', 'G', 'H', '|');    // "|HIGH|": the last four bytes
+constexpr unsigned kPipeH = word4(0, 0, '|', 'H');          // & 0xFFFF0000, four bytes earlier
+constexpr unsigned kPass = word4('P', 'A', 'S', 'S');
+constexpr unsigned kRsPair2 = word4('r', 's', 'r', 's');    // a pair's two bytes, twice
+constexpr unsigned kHPipe2 = word4('H', '|', 'H', '|');
+constexpr unsigned kSemis = 0x3B3B3B3Bu;  // ';' four times
+
+// One 16-byte load that does not allocate in L1: each chunk is read once.
+__device__ __forceinline__ uint4 load_once(const uint4* p) {
     uint4 v;
-
-    __device__ explicit Window(const unsigned char* data)
-        : base(reinterpret_cast<const uint4*>(data)), chunk(-1), v(make_uint4(0, 0, 0, 0)) {}
-
-    __device__ __forceinline__ unsigned at(long long p) {
-        const long long c = p >> 4;
-        if (c != chunk) {
-            chunk = c;
-            v = __ldg(base + c);
-        }
-        const int k = static_cast<int>(p & 15);
-        const unsigned w = k < 8 ? (k < 4 ? v.x : v.y) : (k < 12 ? v.z : v.w);
-        return (w >> ((k & 3) * 8)) & 0xFFu;
-    }
-};
-
-// One step of a matcher of `pat` (length len) whose only proper prefix that
-// is also a suffix is its first byte '|'. Returns true on a full match.
-__device__ __forceinline__ bool match_step(int& state, unsigned c, const char* pat, int len) {
-    if (c == static_cast<unsigned char>(pat[state])) {
-        if (++state == len) {
-            state = 0;
-            return true;
-        }
-    } else {
-        state = c == '|' ? 1 : 0;
-    }
-    return false;
+    asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+        : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+        : "l"(p));
+    return v;
 }
 
-struct Info {
-    bool known_csq;  // "|rs" in the CSQ value
-    bool high;       // "|HIGH|" in the CSQ value
-    bool known_rs;   // the RS value starts with "rs"
-};
-
-__device__ Info scan_info(Window& w, long long s, long long e) {
-    Info out{false, false, false};
-    bool csq_found = false, rs_found = false;  // first CSQ (RS) entry seen
-    bool in_value = false, value_csq = false, value_rs = false;
-    bool key_csq = true, key_rs = true;
-    int key_pos = 0, m_rs = 0, m_high = 0;
-    long long vpos = 0;
-    unsigned first = 0;
-    for (long long p = s; p <= e; ++p) {
-        const unsigned c = p < e ? w.at(p) : ';';  // the end closes the last entry
-        if (!in_value) {
-            if (c == ';' || c == '=') {
-                const bool is_csq = key_csq && key_pos == 3;
-                const bool is_rs = key_rs && key_pos == 2;
-                if (c == '=') {
-                    value_csq = is_csq && !csq_found;
-                    value_rs = is_rs && !rs_found;
-                    in_value = true;
-                    vpos = 0;
-                    m_rs = m_high = 0;
-                }
-                csq_found |= is_csq;  // a flag's value is "TRUE": no match
-                rs_found |= is_rs;
-                key_pos = 0;
-                key_csq = key_rs = true;
-            } else {
-                key_csq = key_csq && key_pos < 3 && c == static_cast<unsigned char>("CSQ"[key_pos]);
-                key_rs = key_rs && key_pos < 2 && c == static_cast<unsigned char>("RS"[key_pos]);
-                ++key_pos;
-                if (key_pos > 3) key_pos = 4;
-            }
-        } else if (c == ';') {
-            in_value = value_csq = value_rs = false;
-        } else {
-            if (value_csq) {
-                out.known_csq |= match_step(m_rs, c, "|rs", 3);
-                out.high |= match_step(m_high, c, "|HIGH|", 6);
-            }
-            if (value_rs) {
-                if (vpos == 0) first = c;
-                if (vpos == 1) out.known_rs = first == 'r' && c == 's';
-            }
-            ++vpos;
-        }
-        if (csq_found && rs_found && !in_value) break;  // both values decided
-    }
-    return out;
+__device__ __forceinline__ unsigned byte_of(const uint4& v, int k) {
+    const unsigned w = k < 8 ? (k < 4 ? v.x : v.y) : (k < 12 ? v.z : v.w);
+    return (w >> ((k & 3) * 8)) & 0xFFu;
 }
 
-// FILTER: passes when empty, "." or "PASS"; `mosaic` when one of its
-// ';'-separated entries is "mosaic" (an empty or "." FILTER has none).
-__device__ void scan_filter(Window& w, long long s, long long e, bool& passing, bool& mosaic) {
-    const long long len = e - s;
-    passing = len == 0 || (len == 1 && w.at(s) == '.') ||
-              (len == 4 && w.at(s) == 'P' && w.at(s + 1) == 'A' && w.at(s + 2) == 'S' &&
-               w.at(s + 3) == 'S');
-    mosaic = false;
-    int pos = 0;
-    bool ok = true;
-    for (long long p = s; p <= e; ++p) {
-        const unsigned c = p < e ? w.at(p) : ';';
-        if (c == ';') {
-            mosaic |= ok && pos == 6;
-            pos = 0;
-            ok = true;
-        } else {
-            ok = ok && pos < 6 && c == static_cast<unsigned char>("mosaic"[pos]);
-            ++pos;
-            if (pos > 6) pos = 7;
-        }
-    }
+// Bit 4i + j for byte j of word i that equals the byte of c4 (c4 holds it
+// four times): 0x80 in each zero byte of w ^ c4, exact, then the four high
+// bits gathered by one multiply (their partial products never overlap).
+__device__ __forceinline__ unsigned equal_bits(unsigned w, unsigned c4) {
+    const unsigned x = w ^ c4;
+    const unsigned z = ~(((x & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x | 0x7F7F7F7Fu);
+    return (z * 0x00204081u) >> 28;
 }
 
-// The first FORMAT key "GT": its index among the ':'-separated keys, or -1
-// (an empty FORMAT has no keys).
-__device__ int gt_index(Window& w, long long s, long long e) {
-    if (s == e) return -1;
-    int index = 0, pos = 0;
-    bool ok = true;
-    for (long long p = s; p <= e; ++p) {
-        const unsigned c = p < e ? w.at(p) : ':';
-        if (c == ':') {
-            if (ok && pos == 2) return index;
-            ++index;
-            pos = 0;
-            ok = true;
-        } else {
-            ok = ok && pos < 2 && c == static_cast<unsigned char>("GT"[pos]);
-            ++pos;
-            if (pos > 2) pos = 3;
-        }
-    }
-    return -1;
+__device__ __forceinline__ unsigned chunk_bits(const uint4& v, unsigned c4) {
+    return equal_bits(v.x, c4) | equal_bits(v.y, c4) << 4 | equal_bits(v.z, c4) << 8 |
+           equal_bits(v.w, c4) << 12;
 }
 
-// GT: 1 homozygous ("1/1", "1|1"), 2 heterozygous ("0/1", "1/0", "0|1",
-// "1|0"), 0 else; the sample's field at `index` (empty past its last).
-__device__ int genotype(Window& w, long long s, long long e, int index) {
-    int field = 0;
-    long long start = s;
-    for (long long p = s; p < e && field < index; ++p) {
-        if (w.at(p) == ':') {
-            ++field;
-            start = p + 1;
-        }
-    }
-    if (field < index) return 0;
-    long long end = start;
-    while (end < e && w.at(end) != ':') ++end;
-    if (end - start != 3) return 0;
-    const unsigned a = w.at(start), sep = w.at(start + 1), b = w.at(start + 2);
-    if (sep != '/' && sep != '|') return 0;
-    if (a == '1' && b == '1') return 1;
-    if ((a == '0' && b == '1') || (a == '1' && b == '0')) return 2;
-    return 0;
+// Non-zero when some byte (halfword) of v is 0; exact as a test.
+__device__ __forceinline__ unsigned zero_byte(unsigned v) {
+    return (v - 0x01010101u) & ~v & 0x80808080u;
+}
+__device__ __forceinline__ unsigned zero_half(unsigned v) {
+    return (v - 0x00010001u) & ~v & 0x80008000u;
+}
+
+// Bits e of a lane's 16 positions o + e that lie in [lo, hi].
+__device__ __forceinline__ unsigned span_bits(int o, int lo, int hi) {
+    const int ia = min(max(lo - o, 0), 16), ib = min(max(hi - o + 1, 0), 16);
+    return ((1u << ib) - 1u) & ~((1u << ia) - 1u);
+}
+
+// Bits k of the 20 positions base + k that lie in [lo, hi].
+__device__ __forceinline__ unsigned span_bits20(int base, int lo, int hi) {
+    const int ia = min(max(lo - base, 0), 20), ib = min(max(hi - base + 1, 0), 20);
+    return ((1u << ib) - 1u) & ~((1u << ia) - 1u);
+}
+
+// The four bytes [e - 3, e] of a lane's window as one word (byte e highest),
+// e in [-4, 15] from its chunk's start; w holds bytes [-8, 16).
+__device__ __forceinline__ unsigned ending_at(const unsigned (&w)[6], int e) {
+    const int b = e + 5, k = b >> 2, s = (b & 3) * 8;
+    return s == 0 ? w[k] : __funnelshift_r(w[k], w[k + 1], s);
 }
 
 __device__ __forceinline__ bool transition(unsigned ref, unsigned alt) {
@@ -222,56 +191,490 @@ __device__ __forceinline__ bool transition(unsigned ref, unsigned alt) {
            (alt == 'T' && ref == 'C') || (alt == 'C' && ref == 'T');
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The lanes that take a record: a warp's kLanes lanes from `base`.
+struct Team {
+    int lane;
+    int base;
+    unsigned mask;
+
+    __device__ __forceinline__ unsigned ballot(bool p) const {
+        return (__ballot_sync(mask, p) & mask) >> base;
+    }
+    __device__ __forceinline__ bool any(bool p) const { return __any_sync(mask, p); }
+    __device__ __forceinline__ unsigned from(unsigned v, int l) const {
+        return __shfl_sync(mask, v, base + l);
+    }
+    __device__ __forceinline__ void sync() const { __syncwarp(mask); }
+};
+
+// Brings a step's chunks into the team's ring: each lane loads its chunk
+// into a register one step ahead and stores it into the step's slot when the
+// step begins.
+struct Stage {
+    unsigned char* ring;
+    uint4 next;
+
+    __device__ explicit Stage(unsigned char* r) : ring(r), next(make_uint4(0, 0, 0, 0)) {}
+
+    // Starts loading chunks [first, first + loaded) for step `seq` of the team.
+    __device__ __forceinline__ void issue(const uint4* chunks, long long first, int loaded,
+                                          unsigned seq, int lane) {
+        (void)seq;
+        next = lane < loaded ? load_once(chunks + first + lane) : make_uint4(0, 0, 0, 0);
+    }
+    // Puts step `seq` into its slot; the team synchronises before reading it.
+    __device__ __forceinline__ void land(unsigned seq, int lane) {
+        *reinterpret_cast<uint4*>(ring + (seq & (kSlots - 1)) * kStep + 16 * lane) = next;
+    }
+};
+
+// FILTER of one record, by one lane: passes when empty, "." or "PASS";
+// `mosaic` when one of its ';'-separated entries is "mosaic". Its first two
+// chunks are loaded at once; a longer FILTER loads a chunk at a time past them.
+__device__ void scan_filter(const uint4* chunks, long long s, long long e, bool& passing,
+                            bool& mosaic) {
+    const long long c0 = s >> 4;
+    long long cb = c0 + 1;  // the chunk in b
+    uint4 a = make_uint4(0, 0, 0, 0), b = a;
+    if (e > s) {
+        a = load_once(chunks + c0);
+        if (((e - 1) >> 4) > c0) b = load_once(chunks + cb);
+    }
+    unsigned head = 0;  // the first four bytes
+    int pos = 0;
+    bool ok = true;
+    mosaic = false;
+    for (long long p = s; p <= e; ++p) {
+        unsigned c = ';';  // the end closes the last entry
+        if (p < e) {
+            const long long k = p >> 4;
+            if (k != c0 && k != cb) {
+                b = load_once(chunks + k);
+                cb = k;
+            }
+            const uint4 chunk = k == c0 ? a : b;
+            c = byte_of(chunk, static_cast<int>(p & 15));
+            if (p - s < 4) head |= c << (8 * (p - s));
+        }
+        if (c == ';') {
+            mosaic |= ok && pos == 6;
+            pos = 0;
+            ok = true;
+        } else {
+            ok = ok && pos < 6 && c == static_cast<unsigned char>("mosaic"[pos]);
+            if (++pos > 6) pos = 7;
+        }
+    }
+    const long long len = e - s;
+    passing = len == 0 || (len == 1 && head == '.') || (len == 4 && head == kPass);
+}
+
+// GT, by one lane: the sample's field at the index of the first FORMAT key
+// "GT" (FORMAT bytes [f4, f5), the sample's [f5, f6), read by `at`): 1
+// homozygous ("1/1", "1|1"), 2 heterozygous ("0/1", "1/0", "0|1", "1|0"), 0
+// else (no such key; an empty FORMAT has none; a field past the sample's last
+// is empty).
+template <class At>
+__device__ int genotype(long long f4, long long f5, long long f6, const At& at) {
+    int gi = -1;
+    if (f5 > f4) {
+        int index = 0, pos = 0;
+        bool ok = true;
+        for (long long p = f4; p <= f5; ++p) {
+            const unsigned c = p < f5 ? at(p) : ':';
+            if (c == ':') {
+                if (ok && pos == 2) {
+                    gi = index;
+                    break;
+                }
+                ++index;
+                pos = 0;
+                ok = true;
+            } else {
+                ok = ok && pos < 2 && c == static_cast<unsigned char>("GT"[pos]);
+                if (++pos > 2) pos = 3;
+            }
+        }
+    }
+    if (gi < 0) return 0;
+    int field = 0;
+    long long start = f5;
+    for (long long p = f5; p < f6 && field < gi; ++p) {
+        if (at(p) == ':') {
+            ++field;
+            start = p + 1;
+        }
+    }
+    if (field < gi) return 0;
+    long long end = start;
+    while (end < f6 && at(end) != ':') ++end;
+    if (end - start != 3) return 0;
+    const unsigned a = at(start), sep = at(start + 1), b = at(start + 2);
+    if (sep != '/' && sep != '|') return 0;
+    if (a == '1' && b == '1') return 1;
+    if ((a == '0' && b == '1') || (a == '1' && b == '0')) return 2;
+    return 0;
+}
+
+// A position as an offset from `base`, clamped to [-kFar, kFar].
+__device__ __forceinline__ int offset_from(long long x, long long base) {
+    const long long d = x - base;
+    return static_cast<int>(d < -kFar ? -kFar : (d > kFar ? kFar : d));
+}
+
+// One record's state as its steps go by, the same in every lane of the team.
+// Positions are offsets from `base` (its first chunk's first byte, moved
+// ahead every kRebaseSteps steps), so that a lane works in 32 bits.
+struct Record {
+    const long long* f;  // its seven offsets (global memory; read only past kFar)
+    long long c0;        // its first chunk
+    long long base;
+    int steps;
+    long long held;      // its chunks that hold its bytes
+    int r[kFields + 1];  // f as offsets from base
+    bool csq_found, csq_open, rs_found, rs_pending, known, high;
+    int vs;              // the open CSQ value's first byte
+    int rs_at;           // the RS value's second byte, still to test
+    unsigned taps;       // REF's byte, ALT's first two
+
+    // From the team's staged copy (stage_record): rec, its offsets from base
+    // and its steps; first, its first chunk.
+    __device__ __forceinline__ void start(const long long* offsets, const int* rec,
+                                          long long first) {
+        f = offsets;
+        c0 = first;
+        base = c0 << 4;
+        const int4 a = *reinterpret_cast<const int4*>(rec);
+        const int4 b = *reinterpret_cast<const int4*>(rec + 4);
+        r[0] = a.x;
+        r[1] = a.y;
+        r[2] = a.z;
+        r[3] = a.w;
+        r[4] = b.x;
+        r[5] = b.y;
+        r[6] = b.z;
+        steps = b.w;
+        // past kFar, from its 64-bit end in global memory
+        held = r[6] < kFar ? (r[6] + 15) >> 4 : (__ldg(f + 6) - base + 15) >> 4;
+        csq_found = csq_open = rs_found = rs_pending = known = high = false;
+        vs = rs_at = 0;
+        taps = 0;
+    }
+
+    // Moves base ahead by kRebaseSteps steps (a record over 2^29 bytes).
+    __device__ __forceinline__ void rebase() {
+        constexpr int shift = kRebaseSteps * kStep;
+        base += shift;
+#pragma unroll
+        for (int k = 0; k <= kFields; ++k) r[k] = offset_from(__ldg(f + k), base);
+        vs = vs - shift < -kFar ? -kFar : vs - shift;
+        rs_at -= shift;
+    }
+
+    // The first key over the team: its position and whether a value follows
+    // (a lane's first key k, of bit k of `keys`, shuffled as 2k + value).
+    __device__ __forceinline__ static bool first_key(unsigned keys, unsigned values, int base,
+                                                     const Team& t, int& at, bool& value) {
+        const unsigned lanes = t.ballot(keys != 0);
+        if (!lanes) return false;
+        const int k = __ffs(keys) - 1;
+        const int l = __ffs(lanes) - 1;
+        const unsigned kv = t.from(static_cast<unsigned>(2 * k) | ((values >> k) & 1u), l);
+        at = base + 16 * l + static_cast<int>(kv >> 1);
+        value = kv & 1u;
+        return true;
+    }
+
+    // Keys CSQ and RS: an entry starts at INFO's start or after ';'. A lane
+    // takes the entries that start after its ';' at p in [o - 4, o + 12)
+    // (INFO's start as a ';' at i0 - 1): their key and its terminator, bytes
+    // p + 1 .. p + 4 (read from the ring), lie in this step, or at and past
+    // INFO's end, where the entry ends; the lane that holds INFO's end takes
+    // the rest of them.
+    __device__ __forceinline__ void info_keys(const unsigned (&w)[6], int o, int s0,
+                                              const unsigned char* ring, int sb,
+                                              unsigned any_semis, const Team& t) {
+        const int i0 = r[3], i1 = r[4];
+        if (!t.any((any_semis | zero_byte(w[1] ^ kSemis)) != 0 || (i0 - 1 >= o - 4 && i0 - 1 < o + 16)))
+            return;
+        // bit k: a ';' at o - 4 + k
+        unsigned starts = (equal_bits(w[1], kSemis) | equal_bits(w[2], kSemis) << 4 |
+                           equal_bits(w[3], kSemis) << 8 | equal_bits(w[4], kSemis) << 12 |
+                           equal_bits(w[5], kSemis) << 16);
+        if (i0 - 1 >= o - 4 && i0 - 1 < o + 16) starts |= 1u << (i0 - 1 - (o - 4));
+        const int hi = i1 >= o && i1 < o + 16 ? i1 - 1 : o + 11;  // the lane with INFO's end: all
+        starts &= span_bits20(o - 4, i0 - 1, min(hi, i1 - 1));
+        if (!t.any(starts != 0)) return;
+        unsigned csq = 0, rs = 0, csq_val = 0, rs_val = 0;
+        while (starts) {
+            const int k = __ffs(starts) - 1;  // the ';' at p = o - 4 + k
+            starts &= starts - 1;
+            const int p = o - 4 + k;
+            const int a = sb + p + 1 - s0;  // bytes p + 1 .. p + 4 from the ring
+            const unsigned u = __funnelshift_r(
+                *reinterpret_cast<const unsigned*>(ring + (a & (kRing - 4))),
+                *reinterpret_cast<const unsigned*>(ring + ((a + 4) & (kRing - 4))), (a & 3) * 8);
+            const unsigned t4 = u >> 24, t3 = (u >> 16) & 0xFFu;
+            if ((u & 0x00FFFFFFu) == kCsq && p + 4 <= i1 &&
+                (p + 4 == i1 || t4 == ';' || t4 == '=')) {
+                csq |= 1u << k;
+                csq_val |= static_cast<unsigned>(p + 4 < i1 && t4 == '=') << k;
+            }
+            if ((u & 0xFFFFu) == kRs && p + 3 <= i1 && (p + 3 == i1 || t3 == ';' || t3 == '=')) {
+                rs |= 1u << k;
+                rs_val |= static_cast<unsigned>(p + 3 < i1 && t3 == '=') << k;
+            }
+        }
+        int at;
+        bool value;
+        if (!csq_found && first_key(csq, csq_val, s0 - 4, t, at, value)) {
+            csq_found = true;
+            csq_open = value;
+            vs = at + 5;  // the ';' at `at`, then "CSQ="
+        }
+        if (!rs_found && first_key(rs, rs_val, s0 - 4, t, at, value)) {
+            rs_found = true;
+            rs_pending = value;
+            rs_at = at + 5;  // ";RS=", then "rs"'s second byte
+        }
+    }
+
+    // The open CSQ value: its end (its ';' or INFO's end), and "|rs" and
+    // "|HIGH|" wholly inside it. Lanes test their 16 positions for a pattern
+    // only where some lane holds the pattern's last two bytes.
+    __device__ __forceinline__ void csq_value(const unsigned (&w)[6], const uint4& v, int o, int s0,
+                                              int s1, unsigned any_semis, const Team& t) {
+        const int i1 = r[4];
+        int ve = kFar + 1;  // past this step
+        if (t.any(o + 15 >= vs && o < i1 && any_semis)) {
+            const unsigned semis = chunk_bits(v, kSemis) & span_bits(o, vs, i1 - 1);
+            const unsigned lanes = t.ballot(semis != 0);
+            if (lanes) {
+                const int l = __ffs(lanes) - 1;
+                ve = s0 + 16 * l + __ffs(t.from(semis, l)) - 1;
+            }
+        }
+        if (ve > kFar && i1 < s1) ve = i1;
+        unsigned rs_pairs = 0, h_pairs = 0;
+#pragma unroll
+        for (int k = 2; k < 6; ++k) {
+            const unsigned shifted = __funnelshift_r(w[k - 1], w[k], 24);
+            rs_pairs |= zero_half(w[k] ^ kRsPair2) | zero_half(shifted ^ kRsPair2);
+            h_pairs |= zero_half(w[k] ^ kHPipe2) | zero_half(shifted ^ kHPipe2);
+        }
+        const bool inside = o + 15 >= vs + 2 && o < ve;
+        if (!high && t.any(inside && h_pairs)) {
+            unsigned m = 0;
+#pragma unroll
+            for (int e = 0; e < 16; ++e)
+                m |= static_cast<unsigned>(ending_at(w, e) == kIghPipe &&
+                                           (ending_at(w, e - 4) & 0xFFFF0000u) == kPipeH) << e;
+            high = t.any((m & span_bits(o, vs + 5, ve - 1)) != 0);
+        }
+        if (!known && t.any(inside && rs_pairs)) {
+            unsigned m = 0;
+#pragma unroll
+            for (int e = 0; e < 16; ++e)
+                m |= static_cast<unsigned>((ending_at(w, e) & 0xFFFFFF00u) == kPipeRs) << e;
+            known = t.any((m & span_bits(o, vs + 2, ve - 1)) != 0);
+        }
+        csq_open = ve > kFar && !(known && high);
+    }
+
+    // Step s, in the ring's slot at byte sb; FORMAT and the sample's first
+    // kTail bytes are copied to `tail`.
+    __device__ __forceinline__ void step(int s, const unsigned char* ring, int sb,
+                                         unsigned char* tail, const Team& t) {
+        if (s > 0 && (s & (kRebaseSteps - 1)) == 0) rebase();
+        const int s0 = (s & (kRebaseSteps - 1)) * kStep;
+        const int n = min(kLanes, (r[6] >> 4) + 1 - (s0 >> 4));
+        const int s1 = s0 + 16 * n;
+        const auto at = [&](int p) -> unsigned { return ring[(sb + p - s0) & (kRing - 1)]; };
+        const int i0 = r[3], i1 = r[4];
+        if (s0 <= i1 && s1 > i0 && (!(csq_found && rs_found) || csq_open || rs_pending)) {
+            const int o = s0 + 16 * t.lane;
+            const uint4 v = *reinterpret_cast<const uint4*>(ring + sb + 16 * t.lane);
+            const uint2 back =
+                *reinterpret_cast<const uint2*>(ring + ((sb + 16 * t.lane - 8) & (kRing - 1)));
+            const unsigned w[6] = {back.x, back.y, v.x, v.y, v.z, v.w};
+            // whether the lane holds a ';'
+            const unsigned any_semis = zero_byte(v.x ^ kSemis) | zero_byte(v.y ^ kSemis) |
+                                       zero_byte(v.z ^ kSemis) | zero_byte(v.w ^ kSemis);
+            if (!(csq_found && rs_found)) info_keys(w, o, s0, ring, sb, any_semis, t);
+            if (rs_pending && rs_at < s1) {  // the RS value starts with "rs"
+                known |= rs_at < i1 && at(rs_at - 1) == 'r' && at(rs_at) == 's';
+                rs_pending = false;
+            }
+            if (csq_open) csq_value(w, v, o, s0, s1, any_semis, t);
+        }
+        // REF's byte and ALT's first two, where this step holds them
+        if (r[0] < s1 && r[1] + 1 >= s0) {
+#pragma unroll
+            for (int k = 0; k < 3; ++k) {
+                const int p = k == 0 ? r[0] : r[1] + k - 1;
+                if (p >= s0 && p < s1) taps |= at(p) << (8 * k);
+            }
+        }
+        // FORMAT and the sample's first kTail bytes
+        const int t1 = min(r[6], r[4] + kTail);
+        if (r[4] < s1 && t1 > s0) {
+            for (int j = 0; j < kTail && r[4] + j < t1; j += kLanes) {
+                const int p = r[4] + j + t.lane;
+                if (p < t1 && p >= s0 && p < s1) tail[j + t.lane] = at(p);
+            }
+        }
+    }
+};
+
+// Record g's offsets `f`, by lane: its first chunk c0, and into `rec` its
+// offsets from byte 16 * c0 (clamped to kFar) and its steps (over chunks
+// through the one holding byte f[6]).
+__device__ __forceinline__ void stage_record(const long long (&f)[kFields + 1], long long& c0,
+                                             int* rec) {
+    c0 = f[0] >> 4;
+    const long long base = c0 << 4;
+    int r[kFields + 1];
+#pragma unroll
+    for (int k = 0; k <= kFields; ++k) {
+        const long long d = f[k] - base;  // f[k] >= base
+        r[k] = static_cast<int>(d < kFar ? d : kFar);
+    }
+    const int steps = static_cast<int>(((static_cast<unsigned long long>(f[6] - base) >> 4) +
+                                        kLanes) / kLanes);
+    *reinterpret_cast<int4*>(rec) = make_int4(r[0], r[1], r[2], r[3]);
+    *reinterpret_cast<int4*>(rec + 4) = make_int4(r[4], r[5], r[6], steps);
+}
+
+// The counts of a record, by one lane, bit k for count k: its offsets from
+// its staged copy (rec, c0; those in global memory, fg, past kFar), `taps`,
+// `known` and `high` as its steps left them, FORMAT and the sample from
+// `tail` (their first kTail bytes) and past them from the buffer.
+__device__ unsigned record_bits(const int* rec, long long c0, const long long* fg, unsigned taps,
+                                bool known, bool high, const unsigned char* tail,
+                                const unsigned char* data) {
+    long long f[kFields + 1];
+    const bool near = rec[kFields] < kFar;
+#pragma unroll
+    for (int k = 0; k <= kFields; ++k) f[k] = near ? (c0 << 4) + rec[k] : __ldg(fg + k);
+    const long long f4 = f[4];
+    const int gt = genotype(f4, f[5], f[6], [&](long long p) -> unsigned {
+        return p - f4 < kTail ? tail[p - f4] : __ldg(data + p);
+    });
+    const long long ref_len = f[1] - f[0], alt_bytes = f[2] - f[1];
+    const unsigned ref0 = taps & 0xFFu, alt0 = (taps >> 8) & 0xFFu, alt1 = taps >> 16;
+    // ALT's first allele: none, one base, or longer
+    const int alt_len = alt_bytes == 0 || alt0 == ',' ? 0 : (alt_bytes == 1 || alt1 == ',' ? 1 : 2);
+    const bool indel = (alt_len == 2 && ref_len == 1) || (alt_len == 1 && ref_len > 1);
+    const bool ti = !indel && alt_len == 1 && ref_len == 1 && transition(ref0, alt0);
+    return 1u << kPassing | static_cast<unsigned>(known) << kKnown |
+           static_cast<unsigned>(high) << kHigh | static_cast<unsigned>(gt == 1) << kHom |
+           static_cast<unsigned>(indel) << kIndel | static_cast<unsigned>(ti) << kTi |
+           static_cast<unsigned>(!indel && !ti) << kTv | static_cast<unsigned>(gt == 2) << kHet;
+}
+
+__global__ void __launch_bounds__(kThreads, kV1BlocksPerSm)
 variant_classify_kernel(const unsigned char* __restrict__ data,
                         const long long* __restrict__ offsets, long long n, int filter,
                         unsigned long long* __restrict__ out) {
-    __shared__ unsigned block_counts[kCounters];
-    if (threadIdx.x < kCounters) block_counts[threadIdx.x] = 0;
+    __shared__ __align__(16) unsigned char s_ring[kTeams][kRing];
+    __shared__ __align__(16) int s_rec[kTeams][kGroup][8];  // stage_record's
+    __shared__ long long s_c0[kTeams][kGroup];
+    __shared__ unsigned char s_tail[kTeams][kGroup][kTail];
+    __shared__ unsigned s_counts[kCounters];
+    if (threadIdx.x < kCounters) s_counts[threadIdx.x] = 0;
     __syncthreads();
-    unsigned counts[kCounters] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
-    Window w(data);
-    const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-    for (long long r = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; r < n;
-         r += stride) {
-        const long long* o = offsets + kFields * r;
+    const int team_id = threadIdx.x / kLanes;
+    const int lane = threadIdx.x % kLanes;
+    const int base = (threadIdx.x & 31) - lane;
+    const Team t{lane, base, kLanes == 32 ? 0xFFFFFFFFu : ((1u << kLanes) - 1u) << base};
+    unsigned char* ring = s_ring[team_id];
+    const uint4* chunks = reinterpret_cast<const uint4*>(data);
+    Stage stage(ring);
+    // a team takes records [lo, hi), in groups of kGroup
+    const long long teams = static_cast<long long>(gridDim.x) * kTeams;
+    const long long me = static_cast<long long>(blockIdx.x) * kTeams + team_id;
+    const long long lo = n * me / teams, hi = n * (me + 1) / teams;
+    unsigned count = 0;  // lane k: count k
+    unsigned seq = 0;    // the team's steps so far: the ring's slot
+    for (long long g = lo; g < hi; g += kGroup) {
+        const int cnt = static_cast<int>(hi - g < kGroup ? hi - g : kGroup);
+        // lane k: record g + k's seven offsets, contiguous in `offsets`
         long long f[kFields + 1];
 #pragma unroll
-        for (int k = 0; k <= kFields; ++k) f[k] = o[k];
-        bool passing, mosaic;
-        scan_filter(w, f[2], f[3], passing, mosaic);
-        if (filter && !passing) {
-            counts[kMosaic] += mosaic;
-            continue;
+        for (int k = 0; k <= kFields; ++k)
+            f[k] = lane < cnt ? __ldg(offsets + kFields * (g + lane) + k) : 0;
+        t.sync();  // the last group's records and tails are no longer read
+        if (lane < cnt) stage_record(f, s_c0[team_id][lane], s_rec[team_id][lane]);
+        t.sync();
+        unsigned take = cnt == 32 ? 0xFFFFFFFFu : (1u << cnt) - 1u;  // records that count
+        if (filter) {
+            bool passing = false, mosaic = false;
+            if (lane < cnt) scan_filter(chunks, f[2], f[3], passing, mosaic);
+            take = t.ballot(lane < cnt && passing);
+            const unsigned m = __popc(t.ballot(lane < cnt && !passing && mosaic));
+            if (lane == kMosaic) count += m;
         }
-        ++counts[kPassing];
-        const Info info = scan_info(w, f[3], f[4]);
-        counts[kKnown] += info.known_csq || info.known_rs;
-        counts[kHigh] += info.high;
-        const int gi = gt_index(w, f[4], f[5]);
-        const int gt = gi < 0 ? 0 : genotype(w, f[5], f[6], gi);
-        counts[kHom] += gt == 1;
-        counts[kHet] += gt == 2;
-        const long long ref_len = f[1] - f[0];
-        long long alt_len = 0;  // ALT up to its first ','
-        while (f[1] + alt_len < f[2] && w.at(f[1] + alt_len) != ',') ++alt_len;
-        if ((alt_len > 1 && ref_len == 1) || (alt_len == 1 && ref_len > 1)) {
-            ++counts[kIndel];
-        } else if (alt_len == 1 && ref_len == 1 && transition(w.at(f[0]), w.at(f[1]))) {
-            ++counts[kTi];
-        } else {
-            ++counts[kTv];
+        if (!take) continue;
+        const unsigned counted = take;
+        // lane k: what record k's steps found
+        bool my_known = false, my_high = false;
+        unsigned my_taps = 0;
+        int i = __ffs(take) - 1;
+        Record r;
+        r.start(offsets + kFields * (g + i), s_rec[team_id][i], s_c0[team_id][i]);
+        stage.issue(chunks, r.c0, static_cast<int>(min(r.held, static_cast<long long>(kLanes))),
+                    seq, lane);
+        for (int s = 0;;) {
+            // the slot this step lands in held step seq - kSlots: every lane
+            // has passed the sync after step seq - 1 landed, so is done with it
+            stage.land(seq, lane);
+            // the next step's loads: this record's, or the next record's first
+            int next = i;
+            if (s + 1 < r.steps) {
+                const long long first = static_cast<long long>(s + 1) * kLanes;
+                const long long left = r.held - first;
+                stage.issue(chunks, r.c0 + first,
+                            left < 0 ? 0 : static_cast<int>(left < kLanes ? left : kLanes),
+                            seq + 1, lane);
+            } else {
+                take &= take - 1;
+                next = take ? __ffs(take) - 1 : -1;
+                if (next >= 0)
+                    stage.issue(chunks, s_c0[team_id][next],
+                                min((s_rec[team_id][next][6] + 15) >> 4, kLanes), seq + 1, lane);
+            }
+            t.sync();  // the step's slot is whole
+            r.step(s, ring, static_cast<int>(seq & (kSlots - 1)) * kStep, s_tail[team_id][i], t);
+            ++seq;
+            if (++s < r.steps) continue;
+            if (lane == i) {
+                my_known = r.known;
+                my_high = r.high;
+                my_taps = r.taps;
+            }
+            if (next < 0) break;
+            i = next;
+            s = 0;
+            r.start(offsets + kFields * (g + i), s_rec[team_id][i], s_c0[team_id][i]);
         }
-    }
+        t.sync();  // the tails are whole
+        // each lane its record's counts
+        const unsigned bits = (counted >> lane) & 1u
+            ? record_bits(s_rec[team_id][lane], s_c0[team_id][lane], offsets + kFields * (g + lane),
+                          my_taps, my_known, my_high, s_tail[team_id][lane], data)
+            : 0u;
 #pragma unroll
-    for (int k = 0; k < kCounters; ++k) {
-        const unsigned s = __reduce_add_sync(0xFFFFFFFFu, counts[k]);
-        if ((threadIdx.x & 31) == 0 && s) atomicAdd(&block_counts[k], s);
+        for (int k = 0; k < kCounters; ++k) {
+            const unsigned c = __popc(t.ballot((bits >> k) & 1u));
+            if (lane == k) count += c;
+        }
     }
+    if (lane < kCounters && count) atomicAdd(&s_counts[lane], count);
     __syncthreads();
-    if (threadIdx.x < kCounters && block_counts[threadIdx.x])
-        atomicAdd(out + threadIdx.x, static_cast<unsigned long long>(block_counts[threadIdx.x]));
+    if (threadIdx.x < kCounters && s_counts[threadIdx.x])
+        atomicAdd(out + threadIdx.x, static_cast<unsigned long long>(s_counts[threadIdx.x]));
 }
+
 
 __global__ void __launch_bounds__(kThreads)
 roh_products_kernel(const double* __restrict__ af, long long m,
@@ -294,6 +697,12 @@ roh_products_kernel(const double* __restrict__ af, long long m,
     }
 }
 
+int grid_v1(long long n) {
+    const long long blocks = (n + kTeams * kGroup - 1) / (kTeams * kGroup);
+    const long long cap = static_cast<long long>(ngs::sm_count()) * kV1BlocksPerSm;
+    return static_cast<int>(blocks < cap ? blocks : cap);
+}
+
 int grid_for(long long items) {
     const long long blocks = (items + kThreads - 1) / kThreads;
     const long long cap = static_cast<long long>(ngs::sm_count()) * kBlocksPerSm;
@@ -309,7 +718,7 @@ extern "C" {
 int ngs_variant_classify(const unsigned char* data, const long long* offsets, long long n,
                          int filter, unsigned long long* out, cudaStream_t stream) {
     if (n <= 0) return 0;
-    variant_classify_kernel<<<grid_for(n), kThreads, 0, stream>>>(data, offsets, n, filter, out);
+    variant_classify_kernel<<<grid_v1(n), kThreads, 0, stream>>>(data, offsets, n, filter, out);
     return static_cast<int>(cudaGetLastError());
 }
 

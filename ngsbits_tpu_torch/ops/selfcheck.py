@@ -35,8 +35,10 @@ at the regions range the host's pre-filter finds);
 the library's test entry); ``genotype_overlaps`` and ``f10_overlaps`` the
 seeded overlaps where the similarity's two forms of r print apart (F10);
 ``variant_classify_case`` VariantQC's V1 on packed records
-(``variant_cases``: at ``VARIANT_EDGES``, no records and ``variant_fuzz``'s
-random records) and ``roh_products_case`` RohHunter's H1 (``roh_cases``: at
+(``variant_cases``: at ``VARIANT_EDGES``, no records, ``variant_seams``'
+records, whose patterns, keys and fields lie at every offset of a 16-byte
+chunk and across the 512-byte steps in which V1 reads a record, and
+``variant_fuzz``'s random records) and ``roh_products_case`` RohHunter's H1 (``roh_cases``: at
 ``roh_edge_inputs``), its float64 products compared as bit patterns.
 ``max_abs_err`` compares the two after both ran once. Each case also counts
 the work the function must do on its inputs: ``bytes`` (each input read once,
@@ -1610,6 +1612,129 @@ def variant_edge_columns() -> list[list[bytes]]:
     return [list(c) for c in zip(*VARIANT_EDGES)]
 
 
+# V1's seams: offsets from the 16-byte chunk that holds a record's first byte,
+# where V1's team reads the record in steps of 32 such chunks (512 bytes):
+# every offset of the second and third lanes' chunks and across the first
+# step's end
+SEAM_OFFSETS = tuple(range(16, 48)) + tuple(range(496, 528))
+SEAM_ALIGNS = (0, 9)   # the record's first byte in its chunk
+SEAM_INFO_LENGTHS = (511, 512, 513, 1025)
+_GENOTYPES = (b"1/1", b"0|1", b"1|0", b"0/1", b"1|1", b"1/2")
+
+
+def _pad(m: int) -> bytes:
+    """An INFO prefix of m bytes that ends an entry (``;``), or nothing."""
+    return b"F=" + b"x" * (m - 3) + b";" if m >= 3 else b";" * m
+
+
+def _seam_record(kind: str, d: int, k: int) -> tuple:
+    """A record (six fields) whose feature of ``kind`` starts at byte d of
+    the record (REF "A", ALT "G", FILTER "PASS" unless the kind moves them,
+    so INFO starts at byte 6); k varies what is around it."""
+    gt = _GENOTYPES[k % len(_GENOTYPES)]
+    if kind == "CSQ=":         # the key's C at d; its value holds both patterns
+        return (b"A", b"G", b"PASS", _pad(d - 6) + b"CSQ=A|x|HIGH|y|rs1", b"GT", gt)
+    if kind == ";RS=rs":       # the separator before the key at d
+        return (b"A", b"G", b"PASS", b"D" * (d - 6) + b";RS=rs" + b"7" * (k % 3), b"GT", gt)
+    if kind == "|rs":          # inside a CSQ value: its '|' at d
+        return (b"C", b"T", b"PASS", b"CSQ=" + b"x" * (d - 10) + b"|rs" + b"9" * (k % 2),
+                b"GT:DP", gt + b":7")
+    if kind == "|HIGH|":
+        return (b"G", b"A", b"PASS", b"CSQ=" + b"x" * (d - 10) + b"|HIGH|" + b"|" * (k % 2),
+                b"GT", gt)
+    if kind == "CSQ value end":   # the value's ';' at d: the patterns after it are another entry's
+        return (b"T", b"C", b"PASS", b"CSQ=" + b"x" * (d - 13) + b"|rs;Z=|HIGH|rs", b"GT", gt)
+    if kind == "ALT ,":        # the first ',' of ALT at d: long first allele, then one base
+        if k % 2:
+            return (b"A" * (d - 1), b"G,T", b"PASS", b"", b"GT", gt)
+        return (b"A", b"C" * (d - 1) + b",T", b"PASS", b"DP=1", b"GT", gt)
+    if kind == "GT key":       # FORMAT's key GT at d, after k % 3 other keys
+        m = min(d - 7, 20)
+        other = (b"", b"DP:", b"GTX:AD:")[k % 3]
+        m = max(m - len(other), 0)
+        info = b"D" * (d - 7 - m - len(other))
+        fmt = b"K" * m + b":" + other + b"GT:DP"
+        index = fmt.split(b":").index(b"GT")
+        return (b"A", b"G", b"PASS", info, fmt, b":".join([b"5"] * index + [gt, b"9"]))
+    if kind == "GT value":     # the sample's GT value at d, its ':' or the field's end after it
+        j = min(d - 12, 20)
+        return (b"A", b"G", b"PASS", b"D" * (d - 12 - j), b"DP:GT",
+                b"3" * j + b":" + gt + (b":5" if k % 2 else b""))
+    raise ValueError(kind)
+
+
+SEAM_KINDS = ("CSQ=", ";RS=rs", "|rs", "|HIGH|", "CSQ value end", "ALT ,", "GT key", "GT value")
+
+
+def _long_info(length: int, k: int) -> bytes:
+    """An INFO of ``length`` bytes: a CSQ value that ends in both patterns,
+    an RS value at its end, or CSQ a flag at its end."""
+    if k == 0:
+        return b"CSQ=" + b"x" * (length - 13) + b"|rs|HIGH|"
+    if k == 1:
+        return b"A=" + b"y" * (length - 9) + b";RS=rs1"
+    return b"DP=" + b"z" * (length - 7) + b";CSQ"
+
+
+def _long_format(keys: int, k: int) -> tuple[bytes, bytes]:
+    """FORMAT with ``keys`` keys before GT (and one after on odd k), and a
+    sample with a value for each (one short on every third k)."""
+    fmt = b":".join(b"K%d" % j for j in range(keys)) + b":GT" + (b":DP" if k % 2 else b"")
+    vals = [b"%d" % (j * 37 % 1000) for j in range(keys)] + [_GENOTYPES[k % len(_GENOTYPES)]]
+    if k % 3 == 2:
+        vals = vals[:-1]
+    return fmt, b":".join(vals)
+
+
+def variant_seams(kind: str | None = None) -> list[list[bytes]]:
+    """V1's seam records as six columns: for each of ``SEAM_KINDS`` (or the
+    one named) a record with the feature at each of ``SEAM_OFFSETS`` from
+    its first chunk, at each of ``SEAM_ALIGNS``, after a leading record
+    whose length puts the record's first byte there (its FILTER PASS, low,
+    mosaic or ".": failing ones too). ``"long INFO"``: INFOs of
+    ``SEAM_INFO_LENGTHS`` bytes, each three ways; ``"long FORMAT"``: FORMATs
+    of 1-40 keys before GT, so that FORMAT and the sample run past the 64
+    bytes of them that the kernel copies a record."""
+    cols: list[list[bytes]] = [[] for _ in range(vops.FIELDS)]
+    at = 0   # the packed bytes so far
+
+    def add(rec):
+        nonlocal at
+        for c, v in zip(cols, rec):
+            c.append(v)
+        at += sum(map(len, rec))
+
+    def lead(align: int, k: int):
+        filt = (b"PASS", b"low", b"mosaic", b".")[k % 4]
+        base = 1 + 1 + len(filt) + 2 + 2 + 3
+        add((b"C", b"T", filt, b"L=" + b"z" * ((align - at - base) % 16), b"GT", b"0/1"))
+
+    kinds = SEAM_KINDS + ("long INFO", "long FORMAT") if kind is None else (kind,)
+    k = 0
+    for name in kinds:
+        if name == "long FORMAT":
+            for keys in range(1, 41):
+                lead(keys % 16, k)
+                add((b"A", b"G", b"PASS", b"DP=9", *_long_format(keys, k)))
+                k += 1
+            continue
+        if name == "long INFO":
+            for align in (0, 1, 7, 15):
+                for length in SEAM_INFO_LENGTHS:
+                    for j in range(3):
+                        lead(align, k)
+                        add((b"A", b"G", b"PASS", _long_info(length, j), b"GT",
+                             _GENOTYPES[k % len(_GENOTYPES)]))
+                        k += 1
+            continue
+        for align in SEAM_ALIGNS:
+            for t in SEAM_OFFSETS:
+                lead(align, k)
+                add(_seam_record(name, t - align, k))
+                k += 1
+    return cols
+
+
 def _entry_ends(data, starts, ends, semis, n: int, key: bytes) -> torch.Tensor:
     """The end (its ``;`` or INFO's end) of the first INFO entry whose key is
     ``key``, flag or value, a record each; -1 where there is none."""
@@ -1705,11 +1830,12 @@ VARIANT_FUZZ = 20_000   # random records of ``variant_cases``
 
 
 def variant_cases(device: torch.device, seed: int = 0) -> list:
-    """V1 at its edges (``VARIANT_EDGES``, no records, and ``VARIANT_FUZZ``
-    records of ``variant_fuzz``), with and without the FILTER test: (label,
-    case)."""
+    """V1 at its edges (``VARIANT_EDGES``, no records, ``variant_seams``'
+    records and ``VARIANT_FUZZ`` records of ``variant_fuzz``), with and
+    without the FILTER test: (label, case)."""
     out = []
     for label, cols in (("edges", variant_edge_columns()), ("no records", [[]] * 6),
+                        ("seams", variant_seams()),
                         (f"{VARIANT_FUZZ} random records", variant_fuzz(VARIANT_FUZZ, seed))):
         data, offsets = (t.to(device) for t in vops.pack_fields(cols))
         for filter_ in (True, False):

@@ -61,7 +61,11 @@ of a few blocks, past the SMs, past the steps); F10's seeded ties and zeros
 through ``calculate_similarity`` on the card, printed as the centred form
 prints them; and SampleSimilarity (VCF and BAM modes), SampleGender (hetx,
 sry), SampleIdentity (two threads) and CfDnaQC on the card against the
-port's CPU route on small seeded inputs, byte for byte.
+port's CPU route on small seeded inputs, byte for byte; VariantQC's V1 at
+its edges, on the seam records (each kind alone: patterns, keys and fields
+at every offset of a 16-byte chunk and across the 512-byte steps in which a
+warp reads a record) and on random records, RohHunter's H1 bit for bit, and
+both tools on the card against the CPU.
 Integer outputs: the tolerance is exact equality. Skips where no CUDA
 device is available."""
 
@@ -2160,11 +2164,12 @@ def test_mesh_path_wrappers_skip_the_launch_at_zero_rows():
 # ------------------------------------------------- VariantQC and RohHunter on the card
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("index", range(6))
+@pytest.mark.parametrize("index", range(8))
 def test_variant_classify_matches_plain_version(index):
     """V1 at ``selfcheck.variant_cases``: ``VARIANT_EDGES`` (an INFO over 64
-    KiB among them), no records, 20,000 random records; with and without
-    the FILTER test. Counts equal; one launch, none for no records."""
+    KiB among them), no records, the seam records, 20,000 random records;
+    with and without the FILTER test. Counts equal; one launch, none for no
+    records."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     label, case = selfcheck.variant_cases(torch.device("cuda"), seed=index)[index]
@@ -2177,10 +2182,54 @@ def test_variant_classify_matches_plain_version(index):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("filter_", [True, False])
+@pytest.mark.parametrize("kind", [*selfcheck.SEAM_KINDS, "long INFO", "long FORMAT"])
+def test_variant_classify_at_each_seam_kind(kind, filter_):
+    """V1 on each kind of ``selfcheck.variant_seams`` alone: a pattern, key
+    or field at every offset of a 16-byte chunk and across the 512-byte
+    step in which a warp reads a record, after leading records of every
+    alignment; INFOs of 511, 512, 513 and 1,025 bytes; FORMATs and samples
+    past the 64 bytes of them the kernel copies a record (the rest read from
+    the buffer). Counts equal to the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ngsbits_tpu_torch.ops import variants as vops
+    data, offsets = (t.cuda() for t in vops.pack_fields(selfcheck.variant_seams(kind)))
+    case = selfcheck.variant_classify_case(data, offsets, filter_)
+    case.kernel()
+    case.plain()
+    torch.cuda.synchronize()
+    assert selfcheck.max_abs_err(case) == 0
+
+
+@pytest.mark.gpu
+def test_variant_classify_on_a_record_over_a_gibibyte():
+    """V1 on a record whose INFO runs past 2^30 bytes between two short
+    records: its offsets from its first chunk pass the kernel's 32-bit clamp,
+    and its base moves on twice (every 2^29 bytes); "|rs" and "|HIGH|" at
+    the CSQ value's end, then an RS value. Counts equal to the plain
+    version's, with and without the FILTER test."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ngsbits_tpu_torch.ops import variants as vops
+    short = (b"A", b"G", b"PASS", b"CSQ=A|x|LOW|", b"GT", b"0/1")
+    long_info = b"CSQ=" + b"x" * ((1 << 30) + 4093) + b"|rs|HIGH|;RS=rs7"
+    recs = [short, (b"C", b"T", b"PASS", long_info, b"DP:GT", b"9:1|1"), short]
+    data, offsets = (t.cuda() for t in vops.pack_fields([list(c) for c in zip(*recs)]))
+    for filter_ in (True, False):
+        case = selfcheck.variant_classify_case(data, offsets, filter_)
+        case.kernel()
+        case.plain()
+        torch.cuda.synchronize()
+        assert selfcheck.max_abs_err(case) == 0
+        assert case.outputs()[0][0].tolist()[:4] == [3, 1, 1, 1]
+
+
+@pytest.mark.gpu
 def test_variant_classify_on_records_past_the_grid():
-    """V1 on more records than its grid has threads (a grid-stride loop),
-    from an unaligned-length buffer padded by ``pack_fields``, and its
-    refusals of an unaligned buffer."""
+    """V1 on more records than its grid has warps (each warp a range of
+    records, in groups of 32), from an unaligned-length buffer padded by
+    ``pack_fields``, and its refusals of an unaligned buffer."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from ngsbits_tpu_torch.ops import variants as vops

@@ -5,7 +5,10 @@ host loops, JAX_PLATFORMS=cpu) on the same seeded VCFs: qcML (without its
 message where the tool refuses its input. V1's plain version
 (``ops/variants.py::variant_classify_plain``) against the JAX package's
 record loops (``ngsbits_tpu/qc/variant_stats.py:49-165``, through its own
-accessors) at every selfcheck edge and on random records, counts equal.
+accessors) at every selfcheck edge, on random records and on the seam
+records (``selfcheck.variant_seams``: each pattern, key and field at every
+offset of a 16-byte chunk and across the kernel's 512-byte steps), counts
+equal.
 F15 pinned: ``-long_read`` on a VCF whose passing records carry no phase
 block fails as in the JAX package, and a record whose FORMAT has no PS
 counts as phased with the block id ``""``.
@@ -173,7 +176,8 @@ def _jax_counts(cols, filter_: bool) -> dict:
 
 V1_INPUTS = {"edges": selfcheck.variant_edge_columns,
              "no records": lambda: [[] for _ in range(6)],
-             "random records": lambda: selfcheck.variant_fuzz(6_000, seed=73)}
+             "random records": lambda: selfcheck.variant_fuzz(6_000, seed=73),
+             "seams": selfcheck.variant_seams}
 
 
 @pytest.mark.parametrize("filter_", [True, False])
@@ -187,6 +191,53 @@ def test_v1_plain_matches_the_jax_record_loops(inputs_name, filter_):
     vops.variant_classify_into(data, offsets, filter_, out)
     assert vops.variant_classify_into.launches == before  # the CPU route launches nothing
     assert dict(zip(vops.COUNTERS, out.tolist())) == _jax_counts(cols, filter_)
+
+
+@pytest.mark.parametrize("filter_", [True, False])
+@pytest.mark.parametrize("kind", [*selfcheck.SEAM_KINDS, "long INFO", "long FORMAT"])
+def test_v1_plain_matches_the_jax_record_loops_at_the_seams(kind, filter_):
+    """V1's plain version against the JAX package's record loops on the
+    records whose feature lies at each offset of a 16-byte chunk and across
+    the 512-byte step in which the kernel reads a record, on INFOs of 511,
+    512, 513 and 1,025 bytes, and on FORMATs and samples longer than the 64
+    bytes of them the kernel copies a record."""
+    cols = selfcheck.variant_seams(kind)
+    data, offsets = vops.pack_fields(cols)
+    out = torch.zeros(len(vops.COUNTERS), dtype=torch.int64)
+    vops.variant_classify_into(data, offsets, filter_, out)
+    want = _jax_counts(cols, filter_)
+    assert dict(zip(vops.COUNTERS, out.tolist())) == want
+    assert want["passing"] > 0
+
+
+def _feature_at(kind: str, rec: tuple) -> int:
+    """Where in the record the seam feature of ``kind`` starts."""
+    ref, alt, _, info, fmt, sample = rec
+    head = len(ref) + len(alt) + len(rec[2])
+    if kind == "ALT ,":
+        return len(ref) + alt.index(b",")
+    if kind == "GT key":
+        return head + len(info) + (b":" + fmt).index(b":GT:")
+    if kind == "GT value":
+        return head + len(info) + len(fmt) + sample.index(b":") + 1
+    pattern = {"CSQ value end": b";Z="}.get(kind, kind.encode())
+    return head + info.index(pattern)
+
+
+@pytest.mark.parametrize("kind", selfcheck.SEAM_KINDS)
+def test_v1_seams_put_each_feature_at_each_offset(kind):
+    """Each seam kind's feature lies at every one of ``SEAM_OFFSETS`` from the
+    16-byte chunk that holds its record's first byte, its record starting at
+    each of ``SEAM_ALIGNS`` in that chunk (a leading record puts it there)."""
+    recs = list(zip(*selfcheck.variant_seams(kind)))
+    at, seen, aligns = 0, set(), set()
+    for i, rec in enumerate(recs):
+        if i % 2:
+            aligns.add(at % 16)
+            seen.add(at % 16 + _feature_at(kind, rec))
+        at += sum(map(len, rec))
+    assert aligns == set(selfcheck.SEAM_ALIGNS)
+    assert seen == set(selfcheck.SEAM_OFFSETS)
 
 
 def _needed_bytes(cols, filter_: bool) -> tuple[int, int]:
