@@ -97,7 +97,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
             ROH products (H1, ``roh_products``) at ``roh_edge_inputs``
             (single markers, the whole array, af 0, products that go
             subnormal and underflow to 0, an empty range, ranges outside the
-            array; timed there likewise) and with no range, bit patterns
+            array; timed there likewise) joined with ``roh_exit_edges``
+            (products that reach 0 or +inf and then meet a +inf, 0 or NaN
+            square at every place the early exit cares for, NaN af with
+            payloads and signs, -0.0 and -inf, 4,000 markers at af 1.0,
+            every offset of a 32-marker chunk) and with no range, bit patterns
             equal.
             K1, unpack and tails also at MappingQC's -read_qc buckets. Times per
             call (``ops/selfcheck.py``): ``ms`` device time (10 calls captured
@@ -318,8 +322,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
             the bytes the counts need, ``selfcheck.variant_needed_bytes``)
             and at the qcML run's (the FILTER test: ``filtered_launch`` in
             its record) and H1 at the first RohHunter run's two (the final regions' plain
-            version once: it takes a step a marker of the longest region);
-            then ``NgsBitsInfo``'s lines.
+            version once: it takes a step a marker of the longest region),
+            each with its longest range, its longest chain of multiplies
+            before the product leaves the positive finite numbers
+            (``selfcheck.roh_chain``) and the chain floor: that chain times
+            one dependent float64 multiply's latency (a one-thread chain of
+            2^22 ``__dmul_rn``, ``H1_PROBE``) plus the launch floor (an
+            empty kernel, cold); then ``NgsBitsInfo``'s lines.
             ``--phase variants`` runs only the kernels and this phase.
 13. mesh    the mesh layer (``ngsbits_tpu_torch/parallel/mesh.py``). At a
             world of one on NCCL: ``dryrun_multichip(1)`` (the five sharded
@@ -488,6 +497,95 @@ def probe():
         print(f"triton does not import: {exc}")
 
 
+# H1's yardsticks, built beside the kernels: a one-thread chain of dependent
+# float64 multiplies (its latency), an empty kernel (the launch floor) and
+# __dmul_rn of pairs (what the card's multiply makes of NaN operands).
+H1_PROBE = r"""
+#include <cuda_runtime.h>
+__global__ void dmul_chain(double x, double y, long long n, double* out, long long* cycles) {
+    double p = x;
+    const long long t0 = clock64();
+    for (long long i = 0; i < n; ++i) p = __dmul_rn(p, y);
+    cycles[0] = clock64() - t0;
+    out[0] = p;
+}
+__global__ void empty_kernel() {}
+__global__ void pair_mul(const double* a, const double* b, double* out, int n) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) out[i] = __dmul_rn(a[i], b[i]);
+}
+extern "C" {
+int ngs_probe_dmul_chain(double x, double y, long long n, double* out, long long* cycles,
+                         cudaStream_t s) {
+    dmul_chain<<<1, 1, 0, s>>>(x, y, n, out, cycles);
+    return static_cast<int>(cudaGetLastError());
+}
+int ngs_probe_empty(cudaStream_t s) {
+    empty_kernel<<<1, 32, 0, s>>>();
+    return static_cast<int>(cudaGetLastError());
+}
+int ngs_probe_mul(const double* a, const double* b, double* out, int n, cudaStream_t s) {
+    pair_mul<<<(n + 255) / 256, 256, 0, s>>>(a, b, out, n);
+    return static_cast<int>(cudaGetLastError());
+}
+}
+"""
+H1_CHAIN = 1 << 22   # multiplies of the latency probe's chain
+
+
+def start_h1_probe(out_dir: Path) -> tuple[subprocess.Popen, Path]:
+    """Starts nvcc on ``H1_PROBE`` into ``out_dir``: (the process, the library)."""
+    from ngsbits_tpu_torch.ops import _build
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src, so = out_dir / "h1_probe.cu", out_dir / "libh1_probe.so"
+    src.write_text(H1_PROBE)
+    return subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", "-o", str(so),
+                             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True), so
+
+
+def load_h1_probe(proc: subprocess.Popen, so: Path):
+    import ctypes
+    log = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the H1 probe:\n{log}")
+    lib = ctypes.CDLL(str(so))
+    p, ll = ctypes.c_void_p, ctypes.c_longlong
+    lib.ngs_probe_dmul_chain.argtypes = [ctypes.c_double, ctypes.c_double, ll, p, p, p]
+    lib.ngs_probe_empty.argtypes = [p]
+    lib.ngs_probe_mul.argtypes = [p, p, p, ctypes.c_int, p]
+    return lib
+
+
+def h1_floors(lib) -> dict:
+    """One dependent float64 multiply's latency (ns and SM cycles, from a
+    one-thread chain of ``H1_CHAIN``), and the launch floor: an empty
+    kernel's device and cold ms."""
+    from ngsbits_tpu_torch.ops import selfcheck
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    out = torch.zeros(1, dtype=torch.float64, device="cuda")
+    cycles = torch.zeros(1, dtype=torch.int64, device="cuda")
+
+    def chain():
+        if lib.ngs_probe_dmul_chain(1.0, 1.0 + 2.0 ** -40, H1_CHAIN, out.data_ptr(),
+                                    cycles.data_ptr(), stream()):
+            raise RuntimeError("the multiply chain did not launch")
+
+    def empty():
+        if lib.ngs_probe_empty(stream()):
+            raise RuntimeError("the empty kernel did not launch")
+    chain()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    chain()
+    b.record()
+    torch.cuda.synchronize()
+    return {"dmul_ns": a.elapsed_time(b) * 1e6 / H1_CHAIN,
+            "dmul_cycles": int(cycles.item()) / H1_CHAIN,
+            "launch_ms": selfcheck.device_ms(empty), "launch_cold_ms": selfcheck.cold_ms(empty)}
+
+
 def build():
     phase("build")
     from ngsbits_tpu_torch.io import native
@@ -502,6 +600,7 @@ def build():
 
     t = threading.Thread(target=build_host)
     t.start()
+    h1_probe = start_h1_probe(WORK.parent / "h1_probe")
     so, seconds = _build.build()
     t.join()
     if "error" in host:
@@ -514,6 +613,7 @@ def build():
             print("  " + line.strip())
     _build.library()
     native.get_lib()
+    return load_h1_probe(*h1_probe)
 
 
 # K1's inputs: (label, B, L, qual_bits, quality profile, read length or None
@@ -2839,11 +2939,26 @@ def _busy(trace: str, wall_s: float) -> str:
             f"{wall_s:.3f} s wall ({kernels} kernels, {len(device) - kernels} copies and sets)")
 
 
-def variants(records: dict):
+def _h1_chain(got: dict, af: torch.Tensor, ranges: torch.Tensor, floors: dict) -> str:
+    """Adds an H1 launch's longest range, longest chain before an exit and
+    chain floor (that chain's multiplies at ``floors``' latency, plus the
+    cold launch floor) to its numbers ``got``; returns them as text."""
+    from ngsbits_tpu_torch.ops import selfcheck
+    got.update(selfcheck.roh_chain(af.cpu().numpy(), ranges.cpu().numpy()))
+    got["chain_floor_ms"] = (got["longest_chain"] * floors["dmul_ns"] * 1e-6
+                             + floors["launch_cold_ms"])
+    return (f"longest range {got['longest_range']} markers, longest chain to exit "
+            f"{got['longest_chain']}, chain floor {got['chain_floor_ms']:.4f} ms "
+            f"({got['chain_floor_ms'] / got['cold_ms']:.1%} of the cold time; bound "
+            f"{got['bound_ms'] / got['cold_ms']:.1%})")
+
+
+def variants(records: dict, h1_probe):
     """VariantQC and RohHunter on the card over a WGS-shaped VCF of chr1 and
     chr2; every V1 and H1 launch held against its plain version, each timed
-    at its runs' inputs; the first run of each tool traced (``device_profile``);
-    the card against the CPU route on a prefix; ``NgsBitsInfo``."""
+    at its runs' inputs, H1's beside its chain floor; the first run of each
+    tool traced (``device_profile``); the card against the CPU route on a
+    prefix; ``NgsBitsInfo``."""
     from ngsbits_tpu_torch.ops import selfcheck
     from ngsbits_tpu_torch.utils import synth
     from ngsbits_tpu_torch.utils.trace import device_profile
@@ -2928,6 +3043,11 @@ def variants(records: dict):
 
     phase(f"kernels: V1 at the variants phase's {len(launches_all['variant_classify'])} "
           f"launches and H1 at its {len(launches_all['roh_products'])}")
+    floors = records["roh_products"]["floors"] = h1_floors(h1_probe)
+    print(f"H1's yardsticks: a dependent float64 multiply {floors['dmul_ns']:.3f} ns "
+          f"({floors['dmul_cycles']:.2f} SM cycles, a one-thread chain of {H1_CHAIN}); an empty "
+          f"kernel {floors['launch_ms']:.4f} ms, cold {floors['launch_cold_ms']:.4f} ms",
+          flush=True)
     timed = next(k for k, a in enumerate(launches_all["variant_classify"]) if not a[4])
     filtered = next(k for k, a in enumerate(launches_all["variant_classify"])
                     if a[0] == "VariantQC")
@@ -2956,7 +3076,11 @@ def variants(records: dict):
         shape = (f"{label}, {('the raw runs', 'the final regions')[j]}: {ranges.shape[0]} ranges "
                  f"over {af.shape[0]} markers, {case.bytes // 8 - 3 * ranges.shape[0]} covered")
         if label == "RohHunter -var_af_keys_vep -exclude -annotate" and j == 0:
-            _record(records, case, shape, True, cold=True, peak_ops=PEAK_FP64_OPS)
+            got = _record(records, case, shape, True, cold=True, peak_ops=PEAK_FP64_OPS)
+            print(f"roh_products     the raw runs: {_h1_chain(got, af, ranges, floors)}",
+                  flush=True)
+            records["roh_products"].update(
+                {k: got[k] for k in ("longest_range", "longest_chain", "chain_floor_ms")})
         elif label == "RohHunter -var_af_keys_vep -exclude -annotate":
             # the plain version takes a step a marker of the longest region: timed once
             t0 = time.perf_counter()
@@ -2970,7 +3094,7 @@ def variants(records: dict):
             print(f"roh_products     {shape}: equal; device {got['ms']:.4f} ms, cold "
                   f"{got['cold_ms']:.4f} ms, per wrapper call {got['call_ms']:.4f} ms, plain "
                   f"{plain_ms:.4f} ms (one call, host clock); bound {got['bound_ms']:.4f} ms "
-                  f"({case.bytes} B)", flush=True)
+                  f"({case.bytes} B); {_h1_chain(got, af, ranges, floors)}", flush=True)
         else:
             print(f"roh_products     {shape}: equal", flush=True)
     del launches_all
@@ -3232,7 +3356,7 @@ def main(argv: list[str] | None = None) -> int:
     os.environ["NGSBITS_TORCH_DEVICE"] = "cuda"
     dev = torch.device("cuda")
     probe()
-    build()
+    h1_probe = build()
     records = kernels(dev)
     if args.phase != "kernels":
         WORK.mkdir(parents=True, exist_ok=True)
@@ -3253,7 +3377,7 @@ def main(argv: list[str] | None = None) -> int:
             if args.phase in ("all", "somatic"):
                 somatic(records)
             if args.phase in ("all", "variants"):
-                variants(records)
+                variants(records, h1_probe)
             if args.phase in ("all", "mesh"):
                 mesh_phase(records)
         finally:

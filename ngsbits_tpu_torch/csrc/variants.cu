@@ -77,14 +77,29 @@
 //   adds them into the counters with one 64-bit atomic a counter.
 //
 // H1 takes the markers' allele frequencies as float64 (each a float32 value,
-// so a * a is exact in double) and [k, 2] int64 inclusive index ranges. A
-// thread takes a range and multiplies in index order with __dmul_rn, which
-// nvcc neither contracts nor reassociates, so the product is bit-equal to the
+// so a * a is exact in double) and [k, 2] int64 inclusive index ranges. It
+// multiplies each range's squares in index order with __dmul_rn, which nvcc
+// neither contracts nor reassociates, so the product is bit-equal to the
 // host's `p *= float(af) ** 2` (its pow(x, 2.0) is x * x, exact for a float32
 // x), subnormals and underflow to 0 included. A range outside [0, m) gives
 // NaN; an empty range (start > end) gives 1. The work is one read of 8 bytes
-// a marker covered and 16 a range: bound by the bytes, and at a run's few
-// thousand ranges by the longest range's chain of dependent multiplies.
+// a marker covered and 16 a range, but the product is a chain of dependent
+// multiplies: the longest range's chain bounds the launch.
+// - The early exit. A square is +0, positive finite, +inf or NaN, so once
+//   the product leaves the positive finite numbers (RohHunter's af is at
+//   least 0.01: a long run's product underflows to 0 within a few hundred
+//   markers) only a few squares can still change it (h1_changes), and one
+//   order-free test over the rest of the range settles it. The serial part
+//   is the chain up to the exit, not the range. A NaN product is final
+//   (h1_changes).
+// - A warp a long range: lanes load a 32-marker chunk each chunk, coalesced,
+//   kH1Ahead chunks ahead, and stage its squares in shared memory; the chain
+//   reads them as broadcasts, so only the multiply's latency is serial.
+//   Short ranges (a run's raw runs: most hold a few markers) are a lane's.
+// - The rests. A chain that exits at 0 or +inf lists its rest; the block's
+//   threads then test all its rests' markers at once, many loads in flight,
+//   and multiply each product by its first changing square (a NaN comes
+//   from the card's own multiply, as in the plain version).
 
 #include <cstdint>
 
@@ -95,7 +110,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;  // H1's grid cap
 constexpr int kCounters = 9;
 enum Counter { kPassing, kKnown, kHigh, kHom, kIndel, kTi, kTv, kMosaic, kHet };
 constexpr int kFields = 6;  // REF, ALT, FILTER, INFO, FORMAT, the first sample
@@ -676,36 +690,234 @@ variant_classify_kernel(const unsigned char* __restrict__ data,
 }
 
 
-__global__ void __launch_bounds__(kThreads)
-roh_products_kernel(const double* __restrict__ af, long long m,
-                    const long long* __restrict__ ranges, long long k,
-                    double* __restrict__ out) {
-    const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-    for (long long r = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; r < k;
-         r += stride) {
-        const long long s = ranges[2 * r], e = ranges[2 * r + 1];
-        if (s < 0 || e >= m) {
-            out[r] = __longlong_as_double(0x7FF8000000000000LL);  // NaN
-            continue;
+// ------------------------------------------------------------------ H1
+// H1's shape
+constexpr int kH1Warps = 16;                 // warps a block
+constexpr int kH1Threads = 32 * kH1Warps;
+constexpr int kH1BlocksPerSm = 2;            // the grid's cap and the register budget
+constexpr int kH1Short = 16;                 // a range of at most this many markers is a lane's
+constexpr int kH1Ahead = 4;                  // chunks of 32 markers a chain loads ahead
+constexpr int kH1Loads = 8;                  // loads a thread has in flight testing the rests
+constexpr int kH1Rests = 32 * kH1Warps;      // a block's rests: at most one a lane a round
+constexpr long long kH1None = 0x7FFFFFFFFFFFFFFFLL;
+
+__device__ __forceinline__ double h1_inf() { return __longlong_as_double(0x7FF0000000000000LL); }
+
+// What a chain leaves when its product p has left the positive finite
+// numbers for 0 or +inf: range r's markers [q, e] are still to be tested.
+struct H1Rest {
+    long long r, q, e;
+    double p;
+};
+
+struct H1Shared {
+    H1Rest rest[kH1Rests];
+    long long first[kH1Rests];          // a rest's first marker whose square changes its p
+    long long off[kH1Rests + 1];        // rest i's markers are [off[i], off[i + 1]) flattened
+    alignas(16) double chunk[kH1Warps][32];  // the squares a warp's chain multiplies next
+    int n;                              // rests listed
+};
+
+// Whether a square can change a product p that is 0 or +inf (a square is
+// +0, positive finite, +inf or NaN, so p is never negative): 0 times +inf
+// or NaN is NaN, +inf times 0 or NaN is NaN. A NaN product is final: the
+// card's multiply returns its first NaN operand's bits, quieted, and the
+// plain version multiplies p first (scripts/h1_variants.py's probe). The
+// compiler orders a multiply's operands as it likes, so no multiply here
+// takes two NaNs.
+__device__ __forceinline__ bool h1_changes(double p, double sq) {
+    return p == 0.0 ? !(sq < h1_inf()) : !(sq > 0.0);
+}
+
+// A short range's product by one lane: its loads first (1.0 past its end:
+// times 1.0 every product is itself, a NaN's bits too), then the chain; a
+// chain that ends NaN is run again, stopping at the first NaN.
+__device__ __forceinline__ double h1_short(const double* __restrict__ af, long long s,
+                                           long long e) {
+    double sq[kH1Short];
+#pragma unroll
+    for (int j = 0; j < kH1Short; ++j) sq[j] = j <= e - s ? __ldg(af + s + j) : 1.0;
+#pragma unroll
+    for (int j = 0; j < kH1Short; ++j) sq[j] = __dmul_rn(sq[j], sq[j]);
+    double p = 1.0;
+#pragma unroll
+    for (int j = 0; j < kH1Short; ++j) p = __dmul_rn(p, sq[j]);
+    if (p != p) {
+        p = 1.0;
+        for (int j = 0; j < kH1Short && p == p; ++j) p = __dmul_rn(p, sq[j]);
+    }
+    return p;
+}
+
+// Range r = [s, e], longer than kH1Short, by the warp, in chunks of 32
+// markers: lane j loads marker j of the chunk kH1Ahead chunks ahead, and
+// squares it into the warp's staging row when its chunk comes (1.0 past
+// the range's end, as in h1_short); every lane
+// multiplies the row in index order (two squares a 16-byte broadcast read),
+// so all hold the same p. The chain ends with the range, or at the end of
+// the chunk in which p left the positive finite numbers: the chunk's
+// multiplies past that marker are the plain product's own, and the rest of
+// the range goes on the block's list (0 or +inf) or is moot (NaN). A chunk
+// that ends NaN is multiplied again from its start, stopping at the first
+// NaN, so that no multiply took two NaNs.
+__device__ void h1_chain(const double* __restrict__ af, long long r, long long s, long long e,
+                         int lane, double* row, H1Shared& sh, double* __restrict__ out) {
+    double ahead[kH1Ahead];
+#pragma unroll
+    for (int d = 0; d < kH1Ahead; ++d) {
+        const long long i = s + 32 * d + lane;
+        ahead[d] = i <= e ? __ldg(af + i) : 0.0;
+    }
+    const double2* pairs = reinterpret_cast<const double2*>(row);
+    double p = 1.0;
+    for (long long c = s;; c += 32) {
+        const double a = ahead[0];
+#pragma unroll
+        for (int d = 0; d + 1 < kH1Ahead; ++d) ahead[d] = ahead[d + 1];
+        const long long i = c + 32 * kH1Ahead + lane;
+        ahead[kH1Ahead - 1] = i <= e ? __ldg(af + i) : 0.0;
+        __syncwarp();  // the last chunk is multiplied
+        row[lane] = c + lane <= e ? __dmul_rn(a, a) : 1.0;
+        __syncwarp();
+        const double p0 = p;
+#pragma unroll 4  // 4 reads ahead of the multiplies: more would spill
+        for (int j = 0; j < 16; ++j) {
+            const double2 v = pairs[j];
+            p = __dmul_rn(__dmul_rn(p, v.x), v.y);
         }
-        double p = 1.0;
-        for (long long i = s; i <= e; ++i) {
-            const double a = __ldg(af + i);
-            p = __dmul_rn(p, __dmul_rn(a, a));
+        if (p != p) {
+            p = p0;
+            for (int j = 0; j < 32 && p == p; ++j) p = __dmul_rn(p, row[j]);
         }
-        out[r] = p;
+        if (e - c < 32 || p != p) {
+            if (lane == 0) out[r] = p;
+            return;
+        }
+        if (!(p > 0.0 && p < h1_inf())) {
+            if (lane == 0) sh.rest[atomicAdd(&sh.n, 1)] = H1Rest{r, c + 32, e, p};
+            return;
+        }
     }
 }
+
+// Settles the block's rests, with every thread of the block: one sweep
+// finds each rest's first marker whose square changes its p (h1_changes),
+// the threads taking the rests' markers flattened, kH1Loads loads each in
+// flight, and keeping the least index a rest with a shared atomic; then p
+// times that square (the plain product's own multiply: its NaN has the
+// card's bits) or p is the product.
+__device__ void h1_settle(const double* __restrict__ af, H1Shared& sh, double* __restrict__ out) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    __syncthreads();  // the list is whole
+    const int n = sh.n;
+    if (n == 0) return;
+    if (warp == 0) {
+        long long carry = 0;
+        for (int base = 0; base < n; base += 32) {
+            const int i = base + lane;
+            long long len = i < n ? sh.rest[i].e - sh.rest[i].q + 1 : 0;
+#pragma unroll
+            for (int o = 1; o < 32; o <<= 1) {
+                const long long t = __shfl_up_sync(0xffffffffu, len, o);
+                if (lane >= o) len += t;
+            }
+            if (i < n) {
+                sh.off[i + 1] = carry + len;
+                sh.first[i] = kH1None;
+            }
+            carry += __shfl_sync(0xffffffffu, len, 31);
+        }
+        if (lane == 0) sh.off[0] = 0;
+    }
+    __syncthreads();
+    const long long total = sh.off[n];
+    int lo = 0;  // the rest of the thread's last marker
+    for (long long f0 = threadIdx.x; f0 < total;
+         f0 += static_cast<long long>(kH1Threads) * kH1Loads) {
+        double a[kH1Loads];
+        int at[kH1Loads];
+#pragma unroll
+        for (int u = 0; u < kH1Loads; ++u) {
+            const long long f = f0 + static_cast<long long>(u) * kH1Threads;
+            while (lo + 1 < n && sh.off[lo + 1] <= f) ++lo;  // the rest that holds f
+            at[u] = f < total ? lo : -1;
+            a[u] = f < total ? __ldg(af + sh.rest[lo].q + (f - sh.off[lo])) : 0.0;
+        }
+#pragma unroll
+        for (int u = 0; u < kH1Loads; ++u) {
+            const int i = at[u];
+            if (i >= 0 && h1_changes(sh.rest[i].p, __dmul_rn(a[u], a[u])))
+                atomicMin(&sh.first[i], sh.rest[i].q + (f0 + static_cast<long long>(u) *
+                                                        kH1Threads - sh.off[i]));
+        }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < n; i += kH1Threads) {
+        double p = sh.rest[i].p;
+        const long long j = sh.first[i];
+        if (j != kH1None) {
+            const double a = __ldg(af + j);
+            p = __dmul_rn(p, __dmul_rn(a, a));
+        }
+        out[sh.rest[i].r] = p;
+    }
+    if (threadIdx.x == 0) sh.n = 0;  // the next round's pushes follow a barrier
+}
+
+// H1: a warp takes `group` ranges a round, strided by the grid's warps
+// (lane j the range `first + j * step`), so that the long runs of one ROH
+// segment, which come in a row, fall to different warps: lane j reads its
+// range's bounds and takes it alone when it is short (or empty, or outside
+// [0, m): NaN), the warp chains the longer ones one after another, then
+// the block settles the rests they listed.
+__global__ void __launch_bounds__(kH1Threads, kH1BlocksPerSm)
+roh_products_kernel(const double* __restrict__ af, long long m,
+                    const long long* __restrict__ ranges, long long k, int group,
+                    double* __restrict__ out) {
+    __shared__ H1Shared sh;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (threadIdx.x == 0) sh.n = 0;
+    const long long warps = static_cast<long long>(gridDim.x) * kH1Warps;
+    for (long long base = 0; base < k; base += warps * group) {
+        __syncthreads();  // the last round's list is read
+        const long long first = base + blockIdx.x * kH1Warps + warp, step = warps;
+        const long long r = first + lane * step;
+        long long s = 0, e = -1;
+        bool chain = false;
+        if (lane < group && r < k) {
+            s = ranges[2 * r];
+            e = ranges[2 * r + 1];
+            if (s < 0 || e >= m) out[r] = __longlong_as_double(0x7FF8000000000000LL);  // NaN
+            else if (e - s < kH1Short) out[r] = h1_short(af, s, e);
+            else chain = true;
+        }
+        for (unsigned todo = __ballot_sync(0xffffffffu, chain); todo; todo &= todo - 1) {
+            const int l = __ffs(todo) - 1;
+            h1_chain(af, first + l * step, __shfl_sync(0xffffffffu, s, l),
+                     __shfl_sync(0xffffffffu, e, l), lane, sh.chunk[warp], sh, out);
+        }
+        h1_settle(af, sh, out);
+    }
+}
+
+// A block a kH1Warps ranges up to the cap, then up to 32 ranges a warp: at
+// a run's raw runs (tens of thousands of ranges, most a few markers) a lane
+// a range, at its final regions (a few hundred) a warp one.
+void h1_launch(const double* af, long long m, const long long* ranges, long long k,
+               double* out, cudaStream_t stream) {
+    const long long cap = static_cast<long long>(ngs::sm_count()) * kH1BlocksPerSm;
+    long long blocks = (k + kH1Warps - 1) / kH1Warps;
+    if (blocks > cap) blocks = cap;
+    long long group = (k + blocks * kH1Warps - 1) / (blocks * kH1Warps);
+    if (group > 32) group = 32;
+    roh_products_kernel<<<static_cast<int>(blocks), kH1Threads, 0, stream>>>(
+        af, m, ranges, k, static_cast<int>(group), out);
+}
+// -------------------------------------------------------------- H1 ends
 
 int grid_v1(long long n) {
     const long long blocks = (n + kTeams * kGroup - 1) / (kTeams * kGroup);
     const long long cap = static_cast<long long>(ngs::sm_count()) * kV1BlocksPerSm;
-    return static_cast<int>(blocks < cap ? blocks : cap);
-}
-
-int grid_for(long long items) {
-    const long long blocks = (items + kThreads - 1) / kThreads;
-    const long long cap = static_cast<long long>(ngs::sm_count()) * kBlocksPerSm;
     return static_cast<int>(blocks < cap ? blocks : cap);
 }
 
@@ -727,7 +939,7 @@ int ngs_variant_classify(const unsigned char* data, const long long* offsets, lo
 int ngs_roh_products(const double* af, long long m, const long long* ranges, long long k,
                      double* out, cudaStream_t stream) {
     if (k <= 0) return 0;
-    roh_products_kernel<<<grid_for(k), kThreads, 0, stream>>>(af, m, ranges, k, out);
+    h1_launch(af, m, ranges, k, out, stream);
     return static_cast<int>(cudaGetLastError());
 }
 

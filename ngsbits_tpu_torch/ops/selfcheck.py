@@ -39,7 +39,9 @@ seeded overlaps where the similarity's two forms of r print apart (F10);
 records, whose patterns, keys and fields lie at every offset of a 16-byte
 chunk and across the 512-byte steps in which V1 reads a record, and
 ``variant_fuzz``'s random records) and ``roh_products_case`` RohHunter's H1 (``roh_cases``: at
-``roh_edge_inputs``), its float64 products compared as bit patterns.
+``roh_edge_inputs`` and ``roh_exit_edges``, the ranges where its early exit
+decides), its float64 products compared as bit patterns; ``roh_chain`` the
+longest range and the longest chain before an exit.
 ``max_abs_err`` compares the two after both ran once. Each case also counts
 the work the function must do on its inputs: ``bytes`` (each input read once,
 each output written once; for K1 only the bytes inside the reads) and ``ops``
@@ -1858,7 +1860,7 @@ def roh_products_case(af: torch.Tensor, ranges: torch.Tensor) -> Case:
                 lambda: vops.roh_products_into(af, ranges, ok),
                 lambda: vops.roh_products_plain(af, ranges, op),
                 lambda: ([ok.view(torch.int64)], [op.view(torch.int64)]),
-                bytes=8 * covered + 24 * k, ops=2 * covered)
+                bytes=8 * covered + 24 * k, ops=2 * covered, inputs=(af, ranges))
 
 
 def roh_edge_inputs(seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
@@ -1883,13 +1885,115 @@ def roh_edge_inputs(seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
     return af.astype(np.float64), np.array(ranges, dtype=np.int64)
 
 
+def roh_exit(sq: np.ndarray) -> int:
+    """The index of the first square at which the ordered product of ``sq``
+    (float64) leaves the positive finite numbers, or -1 where it never does
+    (``multiply.accumulate`` multiplies in index order)."""
+    with np.errstate(over="ignore", under="ignore", invalid="ignore"):
+        p = np.multiply.accumulate(sq)
+    left = np.flatnonzero(~((p > 0) & (p < np.inf)))
+    return int(left[0]) if len(left) else -1
+
+
+ROH_NANS = (0x7FF8000000000123, 0xFFF8000000000000, 0xFFF0000000000001, 0x7FF4000000000000)
+
+
+def roh_exit_edges(seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """H1's early exit at its edges: float64 allele frequencies in blocks and
+    ranges over them. Long runs (1,600 markers of ``roh_edge_inputs``'
+    Beta draws) whose product reaches 0 and then meets one +inf or NaN af:
+    at the first marker after the exit, within the exit's 32-marker chunk,
+    at the range's last marker and 1,000 markers past the exit; +inf before
+    any 0 (a -inf af); a product that overflows to +inf (af 1e30) and then
+    meets a 0; NaN af with a payload, with the sign bit set, signalling,
+    and two different ones in one range; -0.0 and -inf af; 4,000 markers at
+    af 1.0 (no exit: the chain's worst case); ranges whose start and end
+    fall at each offset of a 32-marker chunk, and whose exit does; a range
+    of one and of eight and nine markers around an exit."""
+    rng = np.random.default_rng(seed)
+    blocks: list[np.ndarray] = []
+    ranges: list[tuple[int, int]] = []
+    nans = [np.array([b], dtype=np.uint64).view(np.float64)[0] for b in ROH_NANS]
+
+    def block(af) -> int:
+        blocks.append(np.asarray(af, dtype=np.float64))
+        return sum(len(b) for b in blocks) - len(blocks[-1])
+
+    def run(size: int) -> np.ndarray:
+        return np.maximum(rng.beta(0.6, 2.5, size=size), 0.01).astype(np.float32).astype(
+            np.float64)
+
+    for bad in (np.inf, nans[0]):
+        for where in ("after", "chunk", "last", "far"):
+            af = run(1_600)
+            x = roh_exit(af * af)
+            while x % 32 > 29:  # room after the exit within its chunk
+                af = af[1:]
+                x -= 1
+            j = {"after": x + 1, "chunk": x + 2 + (29 - x % 32) // 2, "last": len(af) - 1,
+                 "far": x + 1_000}[where]
+            af[j] = bad
+            b = block(af)
+            ranges += [(b, b + len(af) - 1), (b, b + j - 1), (b + x, b + len(af) - 1)]
+    af = run(1_200)  # +inf before any 0, then a 0: NaN
+    af[10], af[900] = -np.inf, 0.0
+    b = block(af)
+    ranges += [(b, b + 899), (b, b + 1_199), (b + 10, b + 10), (b + 11, b + 1_199)]
+    af = np.concatenate([np.full(10, np.float32(1e30), np.float64), run(60), [-0.0], run(1_000)])
+    b = block(af)  # overflow to +inf at the 6th marker, then a 0 (-0.0): NaN
+    ranges += [(b, b + 69), (b, b + len(af) - 1), (b + 3, b + 75), (b + 70, b + 70)]
+    for k, nan in enumerate(nans):  # a NaN before the exit, after it, and two NaNs
+        af = run(1_500)
+        x = roh_exit(af * af)
+        af[x // 2] = nan
+        af[x + 40 + k] = nans[(k + 1) % len(nans)]
+        af[x + 700] = -np.inf
+        b = block(af)
+        ranges += [(b, b + len(af) - 1), (b + x // 2, b + x // 2), (b + x // 2 + 1, b + x + 40 + k),
+                   (b + x // 2 + 1, b + len(af) - 1), (b + x + 41 + k, b + len(af) - 1)]
+    b = block(np.ones(4_000))
+    ranges += [(b, b + 3_999), (b + 1, b + 3_998)]
+    af = run(400)  # every start, end and exit offset of a chunk
+    af[300], af[306] = 0.0, np.inf
+    b = block(af)
+    for o in range(32):
+        ranges += [(b + o, b + o + 40 + o), (b + 300 - 64 - o, b + 310 + o),
+                   (b + 300 - o, b + 306), (b + 300 - o, b + 305), (b + 299, b + 299 + o)]
+    ranges += [(b + 300, b + 300), (b + 292, b + 299), (b + 292, b + 300), (b + 298, b + 306)]
+    return np.concatenate(blocks), np.array(ranges, dtype=np.int64)
+
+
+def roh_chain(af: np.ndarray, ranges: np.ndarray) -> dict:
+    """What bounds H1 at these inputs: the longest range in [0, m), and the
+    longest chain of dependent multiplies before the product leaves the
+    positive finite numbers (a range's length where it never does)."""
+    m, longest, chain = len(af), 0, 0
+    for s, e in ranges.tolist():
+        if s < 0 or e >= m or e < s:
+            continue
+        longest = max(longest, e - s + 1)
+        if e - s + 1 <= chain:
+            continue  # cannot beat the longest chain so far
+        with np.errstate(over="ignore", invalid="ignore"):
+            x = roh_exit(af[s:e + 1] * af[s:e + 1])
+        chain = max(chain, x + 1 if x >= 0 else e - s + 1)
+    return {"longest_range": longest, "longest_chain": chain}
+
+
 def roh_cases(device: torch.device, seed: int = 0) -> list:
-    """H1 at ``roh_edge_inputs`` and with no range: (label, case)."""
-    af, ranges = roh_edge_inputs(seed)
-    af_t = torch.from_numpy(af).to(device)
-    return [("edges", roh_products_case(af_t, torch.from_numpy(ranges).to(device))),
-            ("no ranges", roh_products_case(af_t, torch.zeros((0, 2), dtype=torch.int64,
-                                                              device=device)))]
+    """H1 at its edges, ``roh_edge_inputs`` and ``roh_exit_edges`` joined
+    (the former's ranges as they were, the latter's after its 1,000
+    markers, and ranges outside the joined array), and with no range:
+    (label, case)."""
+    af0, r0 = roh_edge_inputs(seed)
+    af1, r1 = roh_exit_edges(seed)
+    m = len(af0) + len(af1)
+    out = np.array([(m - 2, m), (m, m), (-3, -1), (5, m + 7), (1 << 62, 5)], dtype=np.int64)
+    af = torch.from_numpy(np.concatenate([af0, af1])).to(device)
+    ranges = torch.from_numpy(np.concatenate([r0, r1 + len(af0), out])).to(device)
+    return [("edges", roh_products_case(af, ranges)),
+            ("no ranges", roh_products_case(af, torch.zeros((0, 2), dtype=torch.int64,
+                                                            device=device)))]
 
 
 def device_ms(fn: Callable[[], None], calls: int = 10, runs: int = 5) -> float:

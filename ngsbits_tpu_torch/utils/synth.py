@@ -12,7 +12,8 @@ variants (``somatic_variants``: the tumor BAM takes its SNVs through
 plots read (``somatic_vcf``); for RnaQC its splicing and expression TSVs
 (``rna_tsvs``); for VariantQC and RohHunter a WGS-shaped single-sample VCF
 with a VEP CSQ, phase blocks and planted ROH segments (``wgs_vcf``) and
-RohHunter's exclude and annotation BEDs (``roh_beds``). Everything is drawn
+RohHunter's exclude and annotation BEDs (``roh_beds``), and a small VCF of
+homozygous runs whose AF may be +inf or NaN (``roh_af_vcf``). Everything is drawn
 from a numpy seed;
 the BAM writer is the port's own (BGZF with zlib), so nothing here needs
 another package."""
@@ -1442,3 +1443,28 @@ def roh_beds(exclude, annotate, lengths: dict[str, int], segments, seed: int):
         for s in np.sort(rng.integers(0, lengths[name] - 2, size=20)):
             plain.append(f"{name}\t{s}\t{min(int(s) + int(rng.integers(500, 50_000)), lengths[name])}")
     Path(annotate[1]).write_text("\n".join(plain) + "\n")
+
+
+def roh_af_vcf(path, af: str, at: int, seed: int):
+    """A single-sample VCF for RohHunter whose AF may not be finite: chr1, a
+    marker every 1,000 bases, homozygous runs of 300, 300, 60 and 500 markers,
+    each after 20 heterozygous ones (so no two merge), QUAL 50, DP 30, INFO
+    ``AF`` drawn from 0.01-0.3 (written with four decimals: a run's product
+    of af² reaches 0 within 310 markers), except marker ``at`` of the last
+    run, whose AF is ``af`` as written (``inf``, ``1e39``, ``nan``)."""
+    rng = np.random.default_rng(seed)
+    lines = ["##fileformat=VCFv4.2",
+             '##INFO=<ID=AF,Number=A,Type=Float,Description="Allele frequency">',
+             '##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">',
+             '##FORMAT=<ID=DP,Number=1,Type=Integer,Description="Depth">',
+             "##contig=<ID=chr1,length=248956422>",
+             "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\tsample"]
+    pos, runs = 1_000, (300, 300, 60, 500)
+    for k, n in enumerate(runs):
+        for j in range(20 + n):
+            value = (af if k == len(runs) - 1 and j - 20 == at
+                     else f"{rng.uniform(0.01, 0.3):.4f}")
+            gt = "0/1" if j < 20 else "1/1"
+            lines.append(f"chr1\t{pos}\t.\tA\tG\t50\tPASS\tAF={value}\tGT:DP\t{gt}:30")
+            pos += 1_000
+    Path(path).write_text("\n".join(lines) + "\n")

@@ -2251,7 +2251,11 @@ def test_variant_classify_on_records_past_the_grid():
 def test_roh_products_match_plain_version_bit_for_bit(index):
     """H1 at ``selfcheck.roh_cases``: single markers, the whole array, af 0,
     products that go subnormal and underflow to 0, an empty range, ranges
-    outside the array (NaN); no range (no launch). Bit patterns equal."""
+    outside the array (NaN); the early exit's edges (products of 0 or +inf
+    meeting a later +inf, 0 or NaN square at every place the exit cares for,
+    NaN af with payloads and signs, -0.0, -inf, 4,000 markers at af 1.0,
+    every offset of a 32-marker chunk); no range (no launch). Bit patterns
+    equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     label, case = selfcheck.roh_cases(torch.device("cuda"), seed=3)[index]
@@ -2278,6 +2282,7 @@ def roh_inputs(tmp_path_factory):
     segments = synth.wgs_vcf(d / "wgs.vcf", lengths, seed=91, n_roh=(5, 5),
                              roh_size=(100_000, 400_000))
     synth.roh_beds(d / "exclude.bed", [d / "a.bed", d / "b.bed"], lengths, segments, seed=92)
+    synth.roh_af_vcf(d / "af_inf.vcf", "inf", 450, seed=93)
     return d
 
 
@@ -2298,15 +2303,26 @@ VARIANT_TOOLS = {
     "RohHunter -var_af_keys -inc_chrx": (
         ["RohHunter", "-in", "{d}/wgs.vcf", "-var_af_keys", "AF", "-inc_chrx", "-out",
          "{o}/roh.tsv"], ["roh.tsv"], {"roh_products_into": 2}),
+    # QD read as an AF: products overflow to +inf, Q below 0, no raw run
+    # kept, so no final region and no second launch
+    "RohHunter af above 1": (
+        ["RohHunter", "-in", "{d}/wgs.vcf", "-var_af_keys", "AF,QD", "-out", "{o}/roh.tsv"],
+        ["roh.tsv"], {"roh_products_into": 1}),
+    # an AF of inf after the last run's product reached 0: NaN, the run dropped
+    "RohHunter af inf after 0": (
+        ["RohHunter", "-in", "{d}/af_inf.vcf", "-var_af_keys", "AF", "-out", "{o}/roh.tsv"],
+        ["roh.tsv"], {"roh_products_into": 2}),
 }
+HEADER_ONLY = {"RohHunter af above 1"}   # outputs with no region
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", sorted(VARIANT_TOOLS))
 def test_variant_tools_on_card_match_cpu(roh_inputs, tmp_path, monkeypatch, name):
     """VariantQC (one V1 launch) and RohHunter (two H1 launches: the raw
-    runs, the final regions) on the card and on the CPU route: the same
-    bytes (qcML without its ``creation `` line)."""
+    runs, the final regions; also with af above 1 and with an AF of inf
+    after a run's product reached 0) on the card and on the CPU route: the
+    same bytes (qcML without its ``creation `` line)."""
     from ngsbits_tpu_torch.__main__ import main
     from ngsbits_tpu_torch.ops import KERNELS
     args, outputs, launches = VARIANT_TOOLS[name]
@@ -2323,4 +2339,4 @@ def test_variant_tools_on_card_match_cpu(roh_inputs, tmp_path, monkeypatch, name
         assert {k.__name__: k.launches for k in KERNELS if k.launches} == \
             (launches if dev == "cuda" else {})
     assert got[0] == got[1]
-    assert len(got[0][0]) > 3
+    assert len(got[0][0]) == 1 if name in HEADER_ONLY else len(got[0][0]) > 3

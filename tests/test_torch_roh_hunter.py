@@ -5,10 +5,15 @@ merges refused by it), ``-annotate`` with two BEDs, ``-inc_chrx``, the
 output filters and the merge thresholds, and the same exit code and message
 where the tool refuses its input (two samples, no DP header, QUAL ``.`` with
 ``-var_min_q`` above 0, an unsorted exclude BED, a VEP field or CSQ that is
-not there). H1's plain version (``ops/variants.py::roh_products_plain``)
+not there), and on VCFs whose AF reads ``inf`` after a run's product
+reached 0 or before, ``1e39`` (float32 overflow) or ``nan`` (which ``max``
+drops). H1's plain version (``ops/variants.py::roh_products_plain``)
 bit-equal to the host's ordered product of ``_Roh.q_score`` and its Q equal
-to the JAX package's; ``DeviceExclude`` against the JAX package's
-``ChromosomalIndex.matching_index`` on an unmerged BED.
+to the JAX package's; at the early exit's edges (``selfcheck.roh_exit_edges``:
+products of 0, +inf and NaN, NaN payloads) equal to it with any two NaNs
+equal; ``selfcheck.roh_chain`` against a walk of each range;
+``DeviceExclude`` against the JAX package's ``ChromosomalIndex.matching_index``
+on an unmerged BED.
 
 Inputs (numpy seeds, ``utils/synth.py``): ``wgs_vcf`` over three chromosomes
 of 0.4-1 Mb (about 3,300 records, five planted ROH segments of 100-300 kb),
@@ -57,6 +62,8 @@ def inputs(tmp_path_factory):
     (d / "noqual.vcf").write_text(SMALL.format(dp=DP, samples="a")
                                   + "chr1\t5\t.\tA\tG\t50\tPASS\t.\tGT:DP\t1/1:30\n"
                                   + "chr1\t9\t.\tA\tG\t.\tPASS\t.\tGT:DP\t1/1:30\n")
+    for name, (af, at) in AF_VCFS.items():
+        synth.roh_af_vcf(d / f"{name}.vcf", af, at, seed=87)
     return d
 
 
@@ -65,6 +72,10 @@ def _roh(*extra):
 
 
 EXCLUDE = ("-exclude", "{d}/exclude.bed")
+# roh_af_vcf's files: (the AF written, its marker in the last run); the run's
+# product of af² is 0 from its 310th marker at the latest
+AF_VCFS = {"af_inf_after_0": ("inf", 450), "af_inf_before_0": ("inf", 5),
+           "af_1e39": ("1e39", 450), "af_nan": ("nan", 450)}
 CASES = {
     # name: (arguments, expected exit code)
     "defaults": (_roh(), 0),
@@ -93,6 +104,10 @@ CASES = {
     "unsorted exclude": (_roh("-exclude", "{d}/unsorted.bed"), 1),
     "unknown VEP field": (_roh("-var_af_keys_vep", "gnomAD_AF,foo"), 1),
     "no CSQ": (["-in", "{d}/noqual.vcf", "-var_af_keys_vep", "AF", "-var_min_q", "0"], 1),
+    # the last run's product: 0 then NaN (dropped, where 0 would print 10000),
+    # +inf throughout (Q -inf: dropped), NaN, and as without the NaN AF
+    **{f"af {af} at {at}": (["-in", f"{{d}}/{name}.vcf", "-var_af_keys", "AF"], 0)
+       for name, (af, at) in AF_VCFS.items()},
 }
 
 
@@ -220,6 +235,70 @@ def test_h1_plain_is_the_host_product_bit_for_bit(inputs_name):
         region = jax_roh._Roh(None, 0, 0, 0, e - s) if s <= e else None
         if region is not None:
             assert roh_hunter._q_score(p) == region.q_score(var_info)
+
+
+def _same(p: float, q: float) -> bool:
+    return p == q or (p != p and q != q)
+
+
+@pytest.mark.parametrize("inputs_name", ["exit edges", "card edges"])
+def test_h1_plain_at_the_exit_edges_is_the_host_product(inputs_name):
+    """At the edges of H1's early exit (products that reach 0 or +inf and
+    then meet a +inf, 0 or NaN square at every place the exit cares for,
+    NaN af with payloads and signs, -0.0 and -inf, 4,000 markers at af 1.0)
+    and at the card's edges (``roh_cases``: those joined with
+    ``roh_edge_inputs``, ranges outside the joined array), the plain
+    version equals the host's ``p *= float(af) ** 2``, any two NaNs equal
+    (their payloads are the card's to decide, and chip_smoke.py holds the
+    kernel's bits against the plain version's there)."""
+    if inputs_name == "exit edges":
+        af, ranges = selfcheck.roh_exit_edges(seed=88)
+        af_t, ranges_t = torch.from_numpy(af), torch.from_numpy(ranges)
+    else:
+        _, case = selfcheck.roh_cases(torch.device("cpu"), seed=88)[0]
+        af_t, ranges_t = case.inputs
+        af, ranges = af_t.numpy(), ranges_t.numpy()
+    out = torch.zeros(len(ranges), dtype=torch.float64)
+    vops.roh_products_into(af_t, ranges_t, out)
+    m, got = len(af), out.tolist()
+    for (s, e), p in zip(ranges.tolist(), got):
+        if s < 0 or e >= m:
+            assert p != p
+        else:
+            assert _same(p, _host_product(af, s, e)), (s, e)
+    kinds = {"0": sum(p == 0 for p in got), "inf": sum(p == float("inf") for p in got),
+             "nan": sum(p != p for p in got), "1": sum(p == 1 for p in got)}
+    assert all(kinds.values()), kinds
+    if inputs_name == "exit edges":  # each late +inf or NaN turns a 0 into NaN
+        for r in range(8):
+            assert got[3 * r] != got[3 * r] and got[3 * r + 1] == 0
+
+
+def test_roh_chain_is_the_longest_walk_to_an_exit():
+    """``selfcheck.roh_chain`` against a walk of every range: the longest
+    range, and the most multiplies before the product leaves the positive
+    finite numbers (a range's length where it never does)."""
+    for seed in (89, 90):
+        af, ranges = selfcheck.roh_exit_edges(seed)
+        rng = np.random.default_rng(seed)
+        ranges = np.concatenate([ranges, np.array([(-1, 4), (7, 6), (len(af) - 1, len(af))]),
+                                 np.sort(rng.integers(0, len(af), size=(200, 2)), axis=1)])
+        longest = chain = 0
+        for s, e in ranges.tolist():
+            if s < 0 or e >= len(af) or e < s:
+                continue
+            longest = max(longest, e - s + 1)
+            p, n = 1.0, 0
+            for i in range(s, e + 1):
+                p *= float(af[i]) ** 2
+                n += 1
+                if not 0 < p < float("inf"):
+                    break
+            chain = max(chain, n)
+        assert selfcheck.roh_chain(af, ranges) == {"longest_range": longest,
+                                                   "longest_chain": chain}
+    assert selfcheck.roh_chain(np.ones(3), np.zeros((0, 2), dtype=np.int64)) == {
+        "longest_range": 0, "longest_chain": 0}
 
 
 def test_h1_squares_every_float32_exactly():
